@@ -1,0 +1,14 @@
+"""Package paths.
+
+The port ships no data of its own: the default config and the genomes are
+read by path from the JAX package's ``guidemaker_tpu/data`` folder, which
+sits beside this package in the checkout (no file there is imported).
+"""
+import os
+
+ROOT_DIR = os.path.dirname(os.path.abspath(__file__))
+DATA_DIR = os.path.join(os.path.dirname(ROOT_DIR), "guidemaker_tpu", "data")
+CONFIG_PATH = os.path.join(DATA_DIR, "config_default.yaml")
+#: where the CUDA sources are compiled at first use (listed in .gitignore)
+BUILD_DIR = os.path.join(os.path.dirname(ROOT_DIR), "build",
+                         "guidemaker_tpu_torch")

@@ -1,0 +1,81 @@
+"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` at first use and load
+them with ctypes.
+
+The sources have a plain C interface (no PyTorch headers), so one ``nvcc``
+call builds them in seconds.  The shared library is keyed by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded from ``build/guidemaker_tpu_torch/``.  Every failure raises: a
+missing ``nvcc`` or a failed build never falls back to the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from ..definitions import BUILD_DIR, ROOT_DIR
+
+CSRC_DIR = os.path.join(ROOT_DIR, "csrc")
+SOURCES = ("hamming_count.cu", "hamming_topk.cu")
+HEADERS = ("hamming_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``PATH``, else from ``$CUDA_HOME/bin``."""
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME")
+    if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+        return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc is not on PATH or in $CUDA_HOME/bin: the CUDA "
+                       "kernels of guidemaker_tpu_torch cannot be built")
+
+
+def build() -> str:
+    """Compile the kernels if this version of the sources has not been
+    built yet; returns the shared library's path."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+            h.update(fh.read())
+    lib = os.path.join(BUILD_DIR, f"libgm_hamming_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib):
+        return lib
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # ptxas -v reports registers, shared memory and spills per kernel
+    with open(lib[:-3] + ".log", "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           + proc.stderr[-4000:])
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on the first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.gm_hamming_count.argtypes = [P, I, P, I, I, I, P, P]
+            lib.gm_hamming_count.restype = I
+            lib.gm_hamming_topk.argtypes = [P, I, P, I, I, I, I, I, P, P, P]
+            lib.gm_hamming_topk.restype = I
+            _lib = lib
+        return _lib
