@@ -3,7 +3,7 @@
 Flag-for-flag the same as ``guidemaker_tpu.cli`` (names, defaults,
 choices and validation).  The k-NN stages run on the CUDA card; ``--cpu``
 runs them on the CPU with the kernels' plain versions, and nothing else
-does.  Until control guides are ported, run with ``--controls 0``.
+does.
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ def myparser() -> argparse.ArgumentParser:
                         help='how many sequences similar to the guide to report. Default: 5.')
     parser.add_argument('--controls', type=int, default=1000,
                         choices=range(0, 100001, 1), metavar="[0-100000]",
-                        help='Number of random control RNAs to generate. Default: 1000. (Not ported yet: pass 0.)')
+                        help='Number of random control RNAs to generate. Default: 1000.')
     parser.add_argument('--threads', type=int, default=2,
                         help='The number of cpu threads to use. Default: 2')
     parser.add_argument('--log', help="Log file", default="guidemaker.log")

@@ -17,29 +17,19 @@
 //   * database tiles staged in shared memory and read as broadcasts;
 //   * the database is cut into gridDim.y splits to fill the card; each
 //     split writes its own sorted list to (nq, n_splits, K), and
-//     merge_kernel folds the splits into the final (nq, k).  Keys are
-//     unique per query, so the result does not depend on split order.
+//     gm::merge_kernel (topk_common.cuh) folds the splits into the final
+//     (nq, k).
 // At K = 128 the list takes most of a thread's registers, which limits the
 // blocks an SM holds; that is accepted for now (knum is at most 20).
 #include <stdint.h>
 
 #include "hamming_common.cuh"
+#include "topk_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;
-
-// Insert key into the ascending list best[0..K), dropping the largest.
-template <int K>
-__device__ __forceinline__ void insert(int (&best)[K], int key) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int lo = min(best[i], key);
-    key = max(best[i], key);
-    best[i] = lo;
-  }
-}
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
@@ -63,7 +53,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < rows; ++r) {
       const int key =
           ((length - gm::matches(qr, tile[r])) << gm::kIdxBits) | (t + r);
-      if (key < best[K - 1]) insert<K>(best, key);
+      if (key < best[K - 1]) gm::insert<K>(best, key);
     }
   }
   if (qi < nq) {
@@ -71,28 +61,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < K; ++i) o[i] = best[i];
   }
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    merge_kernel(const int* __restrict__ partial, int nq, int n_splits, int k,
-                 int* __restrict__ out) {
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  if (qi >= nq) return;
-  int best[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) best[i] = gm::kInfKey;
-  const int* p = partial + static_cast<size_t>(qi) * n_splits * K;
-  for (int s = 0; s < n_splits; ++s) {
-    for (int i = 0; i < K; ++i) {
-      const int key = p[s * K + i];
-      if (key >= best[K - 1]) break;  // each split's list is ascending
-      insert<K>(best, key);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-    if (i < k) out[static_cast<size_t>(qi) * k + i] = best[i];
 }
 
 template <int K>
@@ -104,12 +72,7 @@ int launch(const void* q, int nq, const void* db, int nd, int length, int k,
       static_cast<const ulonglong2*>(q), nq,
       static_cast<const ulonglong2*>(db), nd, length, rows_per_split,
       static_cast<int*>(partial));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<K><<<(nq + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      static_cast<const int*>(partial), nq, n_splits, k,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return gm::launch_merge<K>(partial, nq, n_splits, k, out, stream);
 }
 
 }  // namespace
@@ -124,15 +87,6 @@ extern "C" int gm_hamming_topk(const void* q, int nq, const void* db, int nd,
       n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kcap) {
-    case 1: return launch<1>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 2: return launch<2>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 4: return launch<4>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 8: return launch<8>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 16: return launch<16>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 32: return launch<32>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 64: return launch<64>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    case 128: return launch<128>(q, nq, db, nd, length, k, n_splits, partial, out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  GM_DISPATCH_KCAP(kcap, launch, q, nq, db, nd, length, k, n_splits, partial,
+                   out, s)
 }

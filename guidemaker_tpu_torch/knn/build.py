@@ -1,11 +1,13 @@
 """Build the CUDA kernels of ``csrc/`` with ``nvcc`` at first use and load
 them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one ``nvcc``
-call builds them in seconds.  The shared library is keyed by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded from ``build/guidemaker_tpu_torch/``.  Every failure raises: a
-missing ``nvcc`` or a failed build never falls back to the plain versions.
+The sources have a plain C interface (no PyTorch headers).  Each source
+is compiled by its own ``nvcc``, all started together, and one more call
+links the objects into a shared library, in seconds.  The library is keyed
+by a hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded from ``build/guidemaker_tpu_torch/``.  Every
+failure raises: a missing ``nvcc`` or a failed build never falls back to
+the plain versions.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ import threading
 from ..definitions import BUILD_DIR, ROOT_DIR
 
 CSRC_DIR = os.path.join(ROOT_DIR, "csrc")
-SOURCES = ("hamming_count.cu", "hamming_topk.cu")
-HEADERS = ("hamming_common.cuh",)
+SOURCES = ("hamming_count.cu", "hamming_topk.cu", "packed_count.cu",
+           "packed_topk.cu")
+HEADERS = ("hamming_common.cuh", "packed_common.cuh", "topk_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -53,15 +56,32 @@ def build() -> str:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+             os.path.join(CSRC_DIR, name)]
+            for name, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    runs = [(cmd, p.communicate()[0], p.returncode)
+            for cmd, p in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in runs):
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        runs.append((cmd, proc.stdout, proc.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     # ptxas -v reports registers, shared memory and spills per kernel
     with open(lib[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           + proc.stderr[-4000:])
+        for cmd, out, _ in runs:
+            fh.write(" ".join(cmd) + "\n" + out)
+    for cmd, out, rc in runs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed with exit code {rc} on "
+                               f"{os.path.basename(cmd[-1])}:\n"
+                               + out[-4000:])
     os.replace(tmp, lib)
     return lib
 
@@ -77,5 +97,9 @@ def library() -> ctypes.CDLL:
             lib.gm_hamming_count.restype = I
             lib.gm_hamming_topk.argtypes = [P, I, P, I, I, I, I, I, P, P, P]
             lib.gm_hamming_topk.restype = I
+            lib.gm_packed_count.argtypes = [P, I, P, I, I, I, I, P, P]
+            lib.gm_packed_count.restype = I
+            lib.gm_packed_topk.argtypes = [P, I, P, I, I, I, I, I, P, P, P]
+            lib.gm_packed_topk.restype = I
             _lib = lib
         return _lib

@@ -5,9 +5,19 @@ stay resident on the index's device.  On a CUDA device every query and
 retention pass runs the hand-written kernels of ``csrc/``; on the CPU it
 runs their plain versions.  Distances are exact and tie-broken by database
 index, so results do not depend on the device.
+
+The packed-pair layout (:mod:`.packed`, two guides per 128-lane int8 row)
+is an opt-in, as in the JAX package: ``packed=True``, or
+``GUIDEMAKER_TPU_PACKED`` set in the environment, for guides of at most 21
+bases.  It gives the same answers through its own two kernels.  It is
+used only for N-free data: a database with an N keeps the 2-bit layout,
+and a call whose queries hold an N takes the 2-bit kernels (the N gate).
 """
 from __future__ import annotations
 
+import logging
+import os
+import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -15,18 +25,38 @@ import torch
 
 from .. import dna
 from ..util import resolve_device
+from . import packed as pk
 from . import stream
 from .hamming import MAX_LEN, pack_codes, unpack_keys
+
+logger = logging.getLogger(__name__)
 
 #: backend names in an index saved by either package -> the port's device
 _SAVED_BACKENDS = {"pallas": "cuda", "sharded": "cuda", "cuda": "cuda",
                    "xla": "cpu", "native": "cpu", "cpu": "cpu"}
 
+#: query rows per count launch: bounds the transient query rows of a large
+#: candidate set (128 bytes a guide when packed: 256 MiB)
+_COUNT_CHUNK = 1 << 21
+
+
+def use_packed(length: int) -> bool:
+    """The JAX package's opt-in: ``GUIDEMAKER_TPU_PACKED`` is set and the
+    guides fit the packed layout."""
+    return (length <= pk.MAX_PACKED_LEN
+            and bool(os.environ.get("GUIDEMAKER_TPU_PACKED")))
+
 
 class KnnIndex:
-    """An exact nearest-neighbor index over equal-length guide sequences."""
+    """An exact nearest-neighbor index over equal-length guide sequences.
 
-    def __init__(self, seqs, metric: str = "hamming", device="cuda"):
+    ``packed`` selects the packed-pair layout (``None``: read
+    ``GUIDEMAKER_TPU_PACKED``, as the JAX package does); ``True`` with
+    guides longer than 21 bases raises.
+    """
+
+    def __init__(self, seqs, metric: str = "hamming", device="cuda",
+                 packed=None):
         if len(seqs) == 0:
             raise ValueError("cannot build an index over zero sequences")
         if metric != "hamming":
@@ -58,9 +88,70 @@ class KnnIndex:
         self._db = self._pack(self._codes)
         self._seqset = None   # frozenset(self.seqs), built on first use
         self._dedup_ok = None  # Arrow-path dedup validity, built on first use
+        if packed is None:
+            packed = use_packed(self.length)
+        elif packed and self.length > pk.MAX_PACKED_LEN:
+            raise ValueError(f"the packed layout holds guides of at most "
+                             f"{pk.MAX_PACKED_LEN} bases (got {self.length})")
+        #: the packed-pair layout is in use (opted in, database N-free)
+        self.packed = bool(packed) and int(self._codes.max(initial=0)) < 4
+        if packed and not self.packed:
+            logger.info("packed layout off for this index: the database "
+                        "holds N bases, which only the 2-bit kernels match")
+        self._db_packed = None    # (ceil(n/2), 128) int8, built on first use
+        self._logged_query_n = False
+        # the control search's thread calls the index beside the main one
+        self._lock = threading.Lock()
 
     def _pack(self, codes: np.ndarray) -> torch.Tensor:
         return pack_codes(torch.from_numpy(codes).to(self.device))
+
+    def _packed_db(self) -> torch.Tensor:
+        """The packed-pair database rows, built once on the device."""
+        if self._db_packed is None:
+            with self._lock:
+                if self._db_packed is None:
+                    self._db_packed = pk.db_rows(
+                        torch.from_numpy(self._codes).to(self.device))
+        return self._db_packed
+
+    def _packed_for(self, q: torch.Tensor) -> bool:
+        """The N gate: does a call on these (nq, L) codes take the packed
+        kernels?  Only in the packed layout and with N-free queries."""
+        if not self.packed:
+            return False
+        if bool((q >= 4).any()):
+            with self._lock:
+                log, self._logged_query_n = not self._logged_query_n, True
+            if log:
+                logger.info("queries with N bases take the 2-bit kernels "
+                            "on this packed index")
+            return False
+        return True
+
+    def _as_codes(self, codes) -> torch.Tensor:
+        """Host codes or a device uint8 tensor -> (nq, L) on the device."""
+        if not torch.is_tensor(codes):
+            codes = torch.from_numpy(np.ascontiguousarray(codes,
+                                                          dtype=np.uint8))
+        return codes.to(self.device)
+
+    def _count(self, q: torch.Tensor, editdist: int) -> torch.Tensor:
+        """(nq,) int32 counts, on the device, of database guides at Hamming
+        distance < ``editdist`` from each of the (nq, L) codes ``q``, in
+        launches of at most ``_COUNT_CHUNK`` queries."""
+        packed = self._packed_for(q)
+        parts = []
+        for lo in range(0, max(q.shape[0], 1), _COUNT_CHUNK):
+            part = q[lo:lo + _COUNT_CHUNK]
+            if packed:
+                parts.append(stream.packed_count(
+                    pk.query_rows(part), self._packed_db(), self._n,
+                    self.length, editdist))
+            else:
+                parts.append(stream.hamming_count(
+                    pack_codes(part), self._db, self.length, editdist))
+        return torch.cat(parts)
 
     @property
     def seqs(self) -> List[str]:
@@ -147,11 +238,16 @@ class KnnIndex:
     def hamming_query_codes(self, qc: np.ndarray,
                             k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact Hamming k-NN on pre-encoded (nq, L) uint8 codes."""
-        qc = np.ascontiguousarray(qc, dtype=np.uint8)
         nq = qc.shape[0]
         if nq == 0:
             return (np.empty((0, k), np.int32), np.empty((0, k), np.int32))
-        keys = stream.hamming_topk(self._pack(qc), self._db, self.length, k)
+        q = self._as_codes(qc)
+        if self._packed_for(q):
+            keys = stream.packed_topk(pk.query_rows(q), self._packed_db(),
+                                      self._n, self.length, k)
+        else:
+            keys = stream.hamming_topk(pack_codes(q), self._db, self.length,
+                                       k)
         dist, idx = (t.cpu().numpy() for t in unpack_keys(keys))
         if dist.shape[1] < k:
             pad = np.full((nq, k - dist.shape[1]), -1, dtype=np.int32)
@@ -166,7 +262,7 @@ class KnnIndex:
         >= editdist?  The reference's guide-retention rule
         (guidemaker/core.py:509-522).
 
-        Where the counting shortcut is exact it runs the count kernel, one
+        Where the counting shortcut is exact it runs a count kernel, one
         pass per guide pair; otherwise it derives the answer from a k=2
         query.
         """
@@ -177,10 +273,10 @@ class KnnIndex:
             return np.zeros(len(seqs), dtype=bool)
         if editdist <= self.length and self._counting_filter_valid(seqs):
             if len(seqs) == self._n and self._seqs_equal_db(seqs):
-                q = self._db        # all-vs-all: reuse the resident rows
+                qc = self._codes    # all-vs-all: no re-encoding
             else:
-                q = self._pack(self._encode_queries(seqs))
-            counts = stream.hamming_count(q, self._db, self.length, editdist)
+                qc = self._encode_queries(seqs)
+            counts = self._count(self._as_codes(qc), editdist)
             # dists[1] >= editdist  <=>  count(dist < editdist) <= 1: for
             # editdist > 0 the self-hit always contributes exactly 1; for
             # editdist == 0 nothing does and every query passes (matching
@@ -188,6 +284,48 @@ class KnnIndex:
             return (counts <= 1).cpu().numpy()
         dists, _ = self.query(seqs, k=2)
         return (dists[:, 1] >= 0) & (dists[:, 1] >= editdist)
+
+    # ------------------------------------------------------------------
+    # counting triage of the control-guide search
+    # ------------------------------------------------------------------
+    def count_within(self, codes, editdist: int):
+        """(nq,) int32 host counts of database guides at HAMMING distance
+        < ``editdist`` from each of the (nq, L) ``codes`` (host array or
+        device uint8 tensor), or None when ``editdist > L`` (callers then
+        take an exact k=1 query).
+
+        Unlike :meth:`pass_distance_filter`, no membership precondition:
+        ``count == 0`` <=> the Hamming nearest is >= ``editdist``.
+        """
+        if editdist > self.length:
+            return None
+        return self._count(self._as_codes(codes), editdist).cpu().numpy()
+
+    def pass_mask_within(self, codes, editdist: int):
+        """(nq,) uint8 host mask, 1 iff NO database guide lies at Hamming
+        distance < ``editdist`` from the candidate (the control ladder's
+        triage decision), or None when ``editdist > L``.  The counts
+        reduce to the mask on the device; one transfer brings it back."""
+        if editdist > self.length:
+            return None
+        counts = self._count(self._as_codes(codes), editdist)
+        return (counts == 0).to(torch.uint8).cpu().numpy()
+
+    def supports_chunk_triage(self, editdist: int) -> bool:
+        """True iff :meth:`pass_mask_chunks` runs: the 2-bit layout and a
+        countable ``editdist``.  The control ladder picks its path once
+        with it; the packed layout takes the monolithic rung, as in the
+        JAX package."""
+        return not self.packed and editdist <= self.length
+
+    def pass_mask_chunks(self, chunks, editdist: int):
+        """:meth:`pass_mask_within` over a list of device candidate chunks,
+        as one uint8 host mask over all their rows in order, or None when
+        :meth:`supports_chunk_triage` is false."""
+        if not self.supports_chunk_triage(editdist):
+            return None
+        masks = [(self._count(c, editdist) == 0) for c in chunks]
+        return torch.cat(masks).to(torch.uint8).cpu().numpy()
 
     def neighbor_seqs(self, idx_row: np.ndarray) -> List[str]:
         """Map database indices to sequences."""

@@ -1,14 +1,17 @@
 """Wrappers of the hand-written CUDA count and top-k kernels (``csrc/``).
 
 Named after the JAX package's ``knn/pallas_stream.py``, whose two
-streaming kernels (count and top-k) these replace.  The 2-D-grid top-k of
-``pallas_hamming.py`` folds into the same top-k kernel: its split from the
-streaming one existed only because of the TPU's cost per grid step.
+streaming kernels (count and top-k) ``hamming_count`` and ``hamming_topk``
+replace.  The 2-D-grid top-k of ``pallas_hamming.py`` folds into the same
+top-k kernel: its split from the streaming one existed only because of the
+TPU's cost per grid step.  ``packed_count`` and ``packed_topk`` replace the
+two kernels of ``pallas_packed.py``, on the packed-pair layout of
+:mod:`.packed`.
 
 On a CPU tensor a wrapper runs its kernel's plain version
-(:mod:`.hamming`).  On a CUDA tensor it launches the kernel on the current
-stream, without synchronising, or raises.  Each wrapper counts its
-launches, so a run can show that it went through the kernel.
+(:mod:`.hamming`, :mod:`.packed`).  On a CUDA tensor it launches the kernel
+on the current stream, without synchronising, or raises.  Each wrapper
+counts its launches, so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 from . import build
 from .hamming import (MAX_DB, MAX_K, MAX_LEN, hamming_count_plain,
                       hamming_topk_plain)
+from .packed import (LANES, MAX_PACKED_LEN, packed_count_plain,
+                     packed_topk_plain)
 
 
 class LaunchCounter:
@@ -39,6 +44,8 @@ class LaunchCounter:
 
 count_launches = LaunchCounter()
 topk_launches = LaunchCounter()
+packed_count_launches = LaunchCounter()
+packed_topk_launches = LaunchCounter()
 
 #: blocks the split choice aims to have in flight on each SM
 _BLOCKS_PER_SM = 8
@@ -129,4 +136,88 @@ def hamming_topk(q: torch.Tensor, db: torch.Tensor, length: int,
         raise RuntimeError(f"hamming_topk kernel launch failed: CUDA error "
                            f"{err}")
     topk_launches.add()
+    return out
+
+
+def _check_packed(q: torch.Tensor, db: torch.Tensor, nd: int,
+                  length: int) -> None:
+    for name, t in (("q", q), ("db", db)):
+        if t.dtype != torch.int8 or t.dim() != 2 or t.shape[1] != LANES:
+            raise ValueError(f"{name} must be (n, {LANES}) int8 packed-pair "
+                             f"rows, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.device != db.device:
+        raise ValueError(f"q on {q.device} but db on {db.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if not 1 <= length <= MAX_PACKED_LEN:
+        raise ValueError(f"packed guide length must be 1..{MAX_PACKED_LEN}, "
+                         f"got {length}")
+    if not 1 <= nd <= MAX_DB:
+        raise ValueError(f"database must hold 1..{MAX_DB} guides, got {nd}")
+    if db.shape[0] != -(-nd // 2):
+        raise ValueError(f"{nd} guides need {-(-nd // 2)} packed rows, got "
+                         f"{db.shape[0]}")
+
+
+def packed_count(q: torch.Tensor, db: torch.Tensor, nd: int, length: int,
+                 editdist: int) -> torch.Tensor:
+    """(nq,) int32: database guides at Hamming distance < ``editdist`` from
+    each query row, on the packed-pair layout (neither side may hold an
+    N).  ``editdist`` 0 counts nothing."""
+    _check_packed(q, db, nd, length)
+    if not 0 <= editdist <= length:
+        raise ValueError(f"editdist must be in 0..{length} for counting, "
+                         f"got {editdist}")
+    if q.device.type == "cpu":
+        return packed_count_plain(q, db, nd, length, editdist)
+    nq = q.shape[0]
+    out = torch.zeros(nq, dtype=torch.int32, device=q.device)
+    if nq == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.gm_packed_count(
+            q.data_ptr(), nq, db.data_ptr(), nd, length, editdist,
+            _n_splits(nq, db.shape[0], 128, q.device), out.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"packed_count kernel launch failed: CUDA error "
+                           f"{err}")
+    packed_count_launches.add()
+    return out
+
+
+def packed_topk(q: torch.Tensor, db: torch.Tensor, nd: int, length: int,
+                k: int) -> torch.Tensor:
+    """(nq, min(k, nd, 128)) int32 packed keys ``(dist << 24) | idx`` of
+    each query row's nearest database guides, ascending, on the packed-pair
+    layout (neither side may hold an N)."""
+    _check_packed(q, db, nd, length)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if q.device.type == "cpu":
+        return packed_topk_plain(q, db, nd, length, k)
+    nq = q.shape[0]
+    k_eff = min(k, nd, MAX_K)
+    out = torch.empty((nq, k_eff), dtype=torch.int32, device=q.device)
+    if nq == 0:
+        return out
+    kcap = 1 << (k_eff - 1).bit_length()
+    n_splits = _n_splits(nq, db.shape[0], 128, q.device)
+    partial = torch.empty((nq, n_splits, kcap), dtype=torch.int32,
+                          device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.gm_packed_topk(
+            q.data_ptr(), nq, db.data_ptr(), nd, length, k_eff, kcap,
+            n_splits, partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"packed_topk kernel launch failed: CUDA error "
+                           f"{err}")
+    packed_topk_launches.add()
     return out

@@ -6,9 +6,8 @@ DataFrames, with the CLI as a thin wrapper.  The k-NN stages run on
 ``PipelineConfig.device``: a CUDA card by default, the CPU only when asked.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: control guides (``controls > 0``), Levenshtein distance
-(``dtype="leven"``), Doench and CFD scoring, and plots (ROADMAP.md,
-modules still to port).
+skipped: Levenshtein distance (``dtype="leven"``), Doench and CFD scoring,
+and plots (ROADMAP.md, modules still to port).
 """
 from __future__ import annotations
 
@@ -83,8 +82,6 @@ class PipelineConfig:
         """Raise ``NotImplementedError`` for an option whose module is not
         ported yet, naming its ROADMAP.md entry."""
         missing = []
-        if self.controls > 0 and not self.raw_output_only:
-            missing.append("controls > 0 (controls; use --controls 0)")
         if self.dtype != "hamming":
             missing.append("dtype='leven' (Levenshtein)")
         if self.doench_efficiency_score or self.cfd_score:
@@ -102,6 +99,9 @@ class PipelineConfig:
 class PipelineResult:
     targets: Optional[pd.DataFrame] = None       # final pretty table
     raw_bed: Optional[pd.DataFrame] = None       # seed-unique guides (bed)
+    controls: Optional[pd.DataFrame] = None
+    control_min_dist: Optional[float] = None
+    control_median_dist: Optional[float] = None
     processor: Optional[TargetProcessor] = None
     annotation: Optional[Annotation] = None
 
@@ -123,7 +123,7 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
     else:
         tempdir = tempfile.mkdtemp(prefix="guidemaker_")
         owns_tempdir = True
-    nb_t = None
+    nb_t = write_t = None
     try:
         with stage_timer("fasta conversion"):
             if cfg.genbank:
@@ -216,6 +216,14 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
             with substage_timer("anno: qualifiers"):
                 anno._get_qualifiers(configpath=cfg.config)
         _join_neighbors()
+        if cfg.controls > 0:
+            # the control search (mostly device time) runs in the
+            # background from here, after the retention pass has left the
+            # card, and hides behind the table and write stages; the
+            # "controls" stage below records its join wait
+            tl.launch_control_search(fastapath, configpath=cfg.config,
+                                     length=cfg.guidelength,
+                                     n=cfg.controls, seed=cfg.seed)
         with stage_timer("format table"):
             anno._format_guide_table(tl)
         prettydf = anno._filterlocus(cfg.attribute_key, cfg.filter_by_attribute)
@@ -224,25 +232,63 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
         logger.info("Guides within a gene (zero feature distance): %d", fd_zero)
         result.targets = prettydf
 
+        write_exc: List[BaseException] = []
         if write_outputs:
             os.makedirs(cfg.outdir, exist_ok=True)
-            # format once via to_csv(index=False), then gzip the blob in one
-            # pass; compresslevel 1 is ~3x faster than the zlib default and
-            # the content (and pd.read_csv round trip) is identical
+
+            def _write_targets():
+                # format once via to_csv(index=False), then gzip the blob
+                # in one pass; compresslevel 1 is ~3x faster than the zlib
+                # default and the content (and pd.read_csv round trip) is
+                # identical
+                try:
+                    import gzip
+                    data = prettydf.to_csv(index=False)
+                    with gzip.open(os.path.join(cfg.outdir,
+                                                "targets.csv.gz"),
+                                   "wb", compresslevel=1) as fh:
+                        fh.write(data.encode())
+                except BaseException as exc:   # re-raised at the join
+                    write_exc.append(exc)
+
+            # the write overlaps the controls join (host CPU beside a
+            # device wait); its stage records the join wait
+            write_t = threading.Thread(target=_write_targets,
+                                       name="gm-write", daemon=True)
+            write_t.start()
+
+        if cfg.controls > 0:
+            logger.info("Creating random control guides")
+            with stage_timer("controls"):
+                cmin, cmed, randomdf = tl.get_control_seqs(
+                    parse_fasta(fastapath), configpath=cfg.config,
+                    length=cfg.guidelength, n=cfg.controls,
+                    num_threads=cfg.threads, seed=cfg.seed)
+            result.controls = randomdf
+            result.control_min_dist = cmin
+            result.control_median_dist = cmed
+            if write_outputs:
+                randomdf.to_csv(os.path.join(cfg.outdir, "controls.csv.gz"))
+            logger.info("Created %d controls; min dist %d, median %d",
+                        cfg.controls, cmin, cmed)
+            logger.info("Genome GC content: %.2f%%; size %.1f MB",
+                        tl.gc_percent, tl.genomesize)
+
+        if write_t is not None:
             with stage_timer("write targets.csv.gz"):
-                import gzip
-                data = prettydf.to_csv(index=False)
-                with gzip.open(os.path.join(cfg.outdir, "targets.csv.gz"),
-                               "wb", compresslevel=1) as fh:
-                    fh.write(data.encode())
+                write_t.join()
+            if write_exc:
+                raise write_exc[0]
 
         logger.info("GuideMaker completed; results in %s", cfg.outdir)
         logger.info("Guide RNA candidates found: %d", len(prettydf))
         return result
     finally:
-        if nb_t is not None and nb_t.is_alive():
-            # exception path before the join: let the retention pass end
-            # before the tempdir goes
-            nb_t.join()
+        # exception path before a join: let the background work end before
+        # the tempdir goes (the control search reads the fasta in it)
+        control_t = getattr(result.processor, "_control_thread", None)
+        for t in (nb_t, write_t, control_t):
+            if t is not None and t.is_alive():
+                t.join()
         if owns_tempdir and not cfg.keeptemp:
             shutil.rmtree(tempdir, ignore_errors=True)

@@ -12,31 +12,79 @@ Deliberate fixes vs the reference (documented, all strictly stronger):
   results are deterministic;
 * reported "Similar guides" strings are looked up in the index's own
   ordering (the reference indexed the full targets column with dedup-set
-  indices — core.py:513 — making those strings unreliable).
-
-The control-guide search is not ported yet (ROADMAP.md, modules still to
-port: controls); its methods raise ``NotImplementedError``.
+  indices — core.py:513 — making those strings unreliable);
+* control search succeeding on the last escalation rung returns instead of
+  raising ``IndexError`` (reference loop condition quirk, core.py:586).
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import re
+import statistics
+import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import pandas as pd
+import torch
 import yaml
 
 from . import dna
+from .io.records import record_id_and_seq
 from .knn import KnnIndex
 
 logger = logging.getLogger(__name__)
 
 pd.options.mode.chained_assignment = None
 
-_CONTROLS_NOT_PORTED = ("the control-guide search is not ported yet "
-                        "(ROADMAP.md, modules still to port: controls); "
-                        "run with controls=0 (--controls 0)")
+#: sampled codes per inverse-CDF cell, in the reference's G, C, A, T order
+_SAMPLE_BASES = torch.tensor([dna.G, dna.C, dna.A, dna.T], dtype=torch.uint8)
+
+#: chunks triaged per round in the control search: the early-exit
+#: granularity
+_TRIAGE_GROUP = 2
+
+
+def _control_chunk_rows(device: torch.device) -> int:
+    """Candidate rows per sampled chunk of the control ladder.
+
+    On the card, 2^19 rows: one chunk is 0.6e12 pairs against a 1.16 M-guide
+    genome, a fraction of a second of counting, so a triage group of two
+    bounds the work past the point where the search could stop, and the
+    chunk's transients (its codes, float draws and counts) stay near
+    100 MB.  On the CPU, 2^13 rows, as the JAX package has it off the TPU,
+    so the tests stay fast.  The value decides which chunks the rungs
+    draw: seeded controls are reproducible per (device type, chunk rows).
+    """
+    return (1 << 19) if device.type == "cuda" else (1 << 13)
+
+
+def _chunk_seed(seed: int, rung: int, chunk: int) -> int:
+    """A 64-bit generator seed for one chunk of one rung."""
+    return int(np.random.SeedSequence([seed, rung, chunk]).generate_state(
+        1, np.uint64)[0])
+
+
+def _sample_chunk(seed: int, rung: int, chunk: int, cum: torch.Tensor,
+                  m: int, length: int, device: torch.device) -> torch.Tensor:
+    """One chunk of control candidates: (m, length) uint8 codes drawn on
+    ``device`` from a ``torch.Generator`` seeded from (seed, rung, chunk),
+    as the JAX package folds (rung, chunk) into its key.
+
+    The inverse CDF over G, C, A, T is the JAX package's: a float32 uniform
+    u falls in cell ``sum(u >= cum)`` of the float32 cumulative
+    frequencies ``cum``.  Philox (CUDA) and the CPU generator give other
+    streams than threefry and than each other, so seeded controls differ
+    between devices and from the JAX package's.
+    """
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_chunk_seed(seed, rung, chunk))
+    u = torch.rand((m, length), generator=gen, device=device,
+                   dtype=torch.float32)
+    cell = (u[..., None] >= cum).sum(-1).clamp_(max=3)
+    return _SAMPLE_BASES.to(device)[cell]
 
 
 class TargetProcessor:
@@ -54,6 +102,9 @@ class TargetProcessor:
         self._nb_dists: Optional[np.ndarray] = None  # (npass, k) int32
         self._nb_idxs: Optional[np.ndarray] = None   # (npass, k) int32
         self._neighbors_cache: Optional[Dict] = None
+        self.ncontrolsearched: Optional[int] = None
+        self.gc_percent: Optional[float] = None
+        self.genomesize: Optional[float] = None
         self.pam_orientation: bool = bool(targets["pam_orientation"].iat[0])
 
     # `nmslib_index` name kept for API compatibility with the reference.
@@ -272,10 +323,215 @@ class TargetProcessor:
         return df
 
     # ------------------------------------------------------------------
-    def launch_control_search(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_CONTROLS_NOT_PORTED)
+    def _control_search(self, gc: float, length: int, n: int,
+                        multiples, minimum_hmdist_target: int,
+                        seed: Optional[int]):
+        """The escalation-ladder search (core.py:586-623), on the device.
 
-    def get_control_seqs(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_CONTROLS_NOT_PORTED)
+        * candidates are sampled on the index's device in fixed
+          ``_control_chunk_rows`` chunks (:func:`_sample_chunk`);
+        * the triage counts every candidate against the genome: it passes
+          iff count(dist < MINIMUM_HMDIST) == 0 <=> nearest >= target;
+        * passers are verified with an exact k=1 Hamming query, and
+          verified passers accumulate across chunks and rungs: the search
+          stops at the first triage group (2-bit layout, chunked path) or
+          rung (packed layout, monolithic path) where they reach ``n``;
+        * the result is the ``n`` most distant verified candidates.
+        """
+        if seed is None:
+            seed = int(np.random.default_rng().integers(0, 2 ** 63))
+        device = self.index.device
+        # reference base order G, C, A, T (core.py:590-592)
+        cum = torch.cumsum(torch.tensor(
+            [gc / 2, gc / 2, (1 - gc) / 2, (1 - gc) / 2],
+            dtype=torch.float32), 0).to(device)
+        chunk = _control_chunk_rows(device)
+
+        acc: List[np.ndarray] = []        # verified passer codes so far
+        acc_dist: List[np.ndarray] = []   # their exact nearest distances
+        acc_n = 0
+        searched = 0
+
+        def sample(rung, c):
+            return _sample_chunk(seed, rung, c, cum, chunk, length, device)
+
+        def verify(pc):
+            """Exact HAMMING k=1 distances; keep only >= target passers.
+            The control rule is Hamming by definition (``MINIMUM_HMDIST``,
+            the "Hamming distance" column), on either index metric."""
+            nonlocal acc_n
+            dists, _ = self.index.hamming_query_codes(pc, k=1)
+            nearest = dists[:, 0].astype(np.int64)
+            keep = nearest >= minimum_hmdist_target
+            if keep.any():
+                acc.append(pc[keep])
+                acc_dist.append(nearest[keep])
+                acc_n += int(keep.sum())
+
+        def result(search_mult):
+            pc_all = np.concatenate(acc)
+            nearest = np.concatenate(acc_dist)
+            order = np.argsort(-nearest, kind="stable")[:n]
+            sort_dist = [float(nearest[i]) for i in order]
+            sort_seq = dna.decode_rows(pc_all[order])
+            return sort_seq, sort_dist, search_mult, searched
+
+        def passer_codes(codes, passers):
+            idx = torch.from_numpy(passers).to(device)
+            return codes[idx].cpu().numpy()
+
+        chunked = self.index.supports_chunk_triage(minimum_hmdist_target)
+        search_mult = 0
+        for rung, search_mult in enumerate(multiples):
+            t_rung = time.time()
+            m = n * search_mult
+            nchunks = -(-m // chunk)
+            if chunked:
+                for c0 in range(0, nchunks, _TRIAGE_GROUP):
+                    chunks = [sample(rung, c) for c in
+                              range(c0, min(c0 + _TRIAGE_GROUP, nchunks))]
+                    pm = self.index.pass_mask_chunks(chunks,
+                                                     minimum_hmdist_target)
+                    valid = min(len(chunks) * chunk, m - c0 * chunk)
+                    passers = np.flatnonzero(pm[:valid])
+                    searched += valid
+                    if passers.size == 0:
+                        continue
+                    verify(passer_codes(torch.cat(chunks), passers))
+                    if acc_n >= n:
+                        logger.debug(
+                            "control search: %d verified passers from %d "
+                            "candidates (early exit inside rung %d, %.2fs)",
+                            acc_n, searched, rung, time.time() - t_rung)
+                        return result(search_mult)
+            else:
+                codes = torch.cat([sample(rung, c)
+                                   for c in range(nchunks)])[:m]
+                pm = self.index.pass_mask_within(codes, minimum_hmdist_target)
+                searched += m
+                if pm is None:      # uncountable target: exact k=1 for all
+                    verify(codes.cpu().numpy())
+                else:
+                    passers = np.flatnonzero(pm)
+                    if passers.size:
+                        verify(passer_codes(codes, passers))
+                if acc_n >= n:
+                    logger.debug("control search: %d verified passers from "
+                                 "%d candidates (rung %d, %.2fs)",
+                                 acc_n, searched, rung, time.time() - t_rung)
+                    return result(search_mult)
+            logger.debug("control rung %d (m=%d): %d/%d verified passers "
+                         "after %.2fs; escalating", rung, m, acc_n, n,
+                         time.time() - t_rung)
+        raise IndexError(
+            "Could not find controls with minimum distance %d even with "
+            "a search pool of %d" % (minimum_hmdist_target, n * search_mult))
+
+    # ------------------------------------------------------------------
+    def launch_control_search(self, fastapath: str, configpath: str,
+                              length: int = 20, n: int = 10,
+                              num_threads: int = 2,
+                              seed: Optional[int] = None):
+        """Run the full control-guide search in a background thread.
+
+        The search needs only the built index and one pass over the fasta
+        for GC%, so launched right after the retention pass it overlaps the
+        host-bound table stages.  A later ``get_control_seqs`` call with
+        the same parameters joins the thread and returns its result;
+        exceptions re-raise at the join.
+        """
+        from .io import parse_fasta
+
+        self._control_args = (configpath, length, n, seed)
+        self._control_result = None
+        self._control_exc: Optional[BaseException] = None
+
+        def _run():
+            t0 = time.time()
+            try:
+                self._control_result = self._get_control_seqs_now(
+                    parse_fasta(fastapath), configpath, length, n,
+                    num_threads, seed)
+                logger.debug("background control search finished in %.2fs",
+                             time.time() - t0)
+            except BaseException as exc:   # re-raised by get_control_seqs
+                # logged now too: a caller that never joins still sees it
+                logger.error("background control search failed: %r", exc)
+                self._control_exc = exc
+
+        t = threading.Thread(target=_run, name="gm-control-search",
+                             daemon=True)
+        t.start()
+        self._control_thread = t
+        return t
+
+    def get_control_seqs(self, seq_record_iter, configpath: str,
+                         length: int = 20, n: int = 10,
+                         num_threads: int = 2, seed: Optional[int] = None):
+        """Random non-targeting controls maximally distant from the genome.
+
+        Replicates core.py:545-633: sample with genome GC composition,
+        exact nearest-target distance via the index, keep the n most
+        distant, escalate the candidate pool through
+        ``CONTROL_SEARCH_MULTIPLE`` until ``n`` candidates reach
+        ``MINIMUM_HMDIST``.  Raises IndexError when the ladder is exhausted
+        (and, unlike the reference, *returns* on success at the final
+        rung).  Returns ``(min distance, median distance, frame)`` with
+        columns ``name``, ``Sequences``, ``Hamming distance``.
+
+        ``seed`` makes the sampling reproducible on one device type (the
+        reference is unseeded; ``None`` keeps that): CUDA and CPU draw
+        other candidates, and neither draws the JAX package's.  If
+        :meth:`launch_control_search` was started with the same
+        parameters, this joins that thread instead of recomputing.
+        """
+        # ``num_threads`` is a reference-API no-op, so it is not part of
+        # the join key
+        th = getattr(self, "_control_thread", None)
+        if (th is not None
+                and getattr(self, "_control_args", None)
+                == (configpath, length, n, seed)):
+            th.join()
+            self._control_thread = None
+            if self._control_exc is not None:
+                raise self._control_exc
+            return self._control_result
+        if th is not None and th.is_alive():
+            logger.warning(
+                "control search parameters changed (%r -> %r); recomputing "
+                "while the stale background search still runs",
+                getattr(self, "_control_args", None),
+                (configpath, length, n, seed))
+        return self._get_control_seqs_now(seq_record_iter, configpath,
+                                          length, n, num_threads, seed)
+
+    def _get_control_seqs_now(self, seq_record_iter, configpath: str,
+                              length: int = 20, n: int = 10,
+                              num_threads: int = 2,
+                              seed: Optional[int] = None):
+        with open(configpath) as cf:
+            config = yaml.safe_load(cf)
+        minimum_hmdist_target = config["CONTROL"]["MINIMUM_HMDIST"]
+        multiples = config["CONTROL"]["CONTROL_SEARCH_MULTIPLE"]
+
+        totlen = 0
+        gccnt = 0.0
+        for record in seq_record_iter:
+            _, seq = record_id_and_seq(record)
+            gccnt += dna.gc_fraction(seq) * len(seq)
+            totlen += len(seq)
+        gc = gccnt / totlen
+        self.gc_percent = gc * 100
+        self.genomesize = totlen / (1024 * 1024)
+        sort_seq, sort_dist, search_mult, searched = self._control_search(
+            gc, length, n, multiples, minimum_hmdist_target, seed)
+
+        # candidates actually triaged (with cross-rung accumulation and
+        # early exit, the honest figure is the number actually drawn)
+        self.ncontrolsearched = searched
+        randomdf = pd.DataFrame(
+            data={"Sequences": sort_seq, "Hamming distance": sort_dist})
+        randomdf["name"] = randomdf["Sequences"].apply(
+            lambda s: "Cont-" + hashlib.md5(s.encode()).hexdigest())
+        randomdf = randomdf[["name", "Sequences", "Hamming distance"]]
+        return (min(sort_dist), statistics.median(sort_dist), randomdf)

@@ -264,3 +264,27 @@ def test_kernels_match_plain_on_card(cuda_device, L):
     for k in (1, 2, 5, 20, 128):
         assert torch.equal(stream.hamming_topk(q, db, L, k),
                            hamming_topk_plain(q, db, L, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [20, 21])
+def test_packed_kernels_match_plain_on_card(cuda_device, L):
+    """The packed-pair kernels against their plain versions, and against
+    the 2-bit kernels, on N-free codes with an odd database."""
+    from guidemaker_tpu_torch.knn import packed as pk
+    rng = np.random.default_rng(L)
+    qn, dbn = _codes(rng, 1000, 20001, L)
+    qn[qn == dna.INVALID] = 0
+    dbn[dbn == dna.INVALID] = 0
+    qc, dbc = (torch.from_numpy(a).to(cuda_device) for a in (qn, dbn))
+    q, db = pk.query_rows(qc), pk.db_rows(dbc)
+    q2, db2 = pack_codes(qc), pack_codes(dbc)
+    for editdist in (0, 1, 2, 3, L):
+        got = stream.packed_count(q, db, 20001, L, editdist)
+        assert torch.equal(got, pk.packed_count_plain(q, db, 20001, L,
+                                                      editdist))
+        assert torch.equal(got, stream.hamming_count(q2, db2, L, editdist))
+    for k in (1, 2, 5, 20, 128):
+        got = stream.packed_topk(q, db, 20001, L, k)
+        assert torch.equal(got, pk.packed_topk_plain(q, db, 20001, L, k))
+        assert torch.equal(got, stream.hamming_topk(q2, db2, L, k))

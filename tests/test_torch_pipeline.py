@@ -103,7 +103,7 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("option", [
-    {"controls": 10}, {"dtype": "leven"}, {"doench_efficiency_score": True},
+    {"dtype": "leven"}, {"doench_efficiency_score": True},
     {"cfd_score": True}, {"plot": True}])
 def test_unported_options_raise(tmp_path, option):
     cfg = PipelineConfig(genbank=[GBK], pamseq="NGG", outdir=str(tmp_path),
@@ -116,12 +116,6 @@ def test_unported_options_raise(tmp_path, option):
 def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KnnIndex(["ACGTACGTACGTACGTACGT"], metric="leven", device="cpu")
-    targets = PamTarget("NGG", "5prime", "hamming").find_targets(
-        parse_fasta(FASTA), 20)
-    tl = TargetProcessor(targets=targets, lsr=10, device="cpu")
-    for call in (tl.get_control_seqs, tl.launch_control_search):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(None, definitions.CONFIG_PATH)
 
 
 def test_cli_device_and_defaults():
