@@ -30,13 +30,39 @@ Phases, one line each; any failure exits non-zero:
    both 2-bit kernels (> 0);
 7. the same run with GUIDEMAKER_TPU_PACKED=1: the same targets table, the
    same control invariants, both packed kernels launched and neither 2-bit
-   kernel.
+   kernel;
+8. P. aeruginosa Levenshtein retention (NGG/5prime/20, all unique guides
+   against all): at dist 2 the mask equals the Hamming mask (1,139,266
+   retained); at dist 3 it is a subset of the Hamming dist-3 mask and, on
+   a fixed sample of 4,096 queries, equals the exact rule (second-nearest
+   Levenshtein distance >= 3, from the k=2 top-k over all guides);
+9. the design run of phase 6 with --dtype leven: its table equals phase
+   6's but for the dtype and the two "Similar guide" columns, its neighbor
+   lists equal the plain DP top-k on the card for a sample of guides, its
+   controls equal phase 6's frame (the control search is Hamming on either
+   metric, and the seed, device and chunking are the same), and the
+   Levenshtein top-k kernel was launched;
+10. the 3-gram tiers of Levenshtein retention at dist 4, all against all,
+   on the first 131,072 unique P. aeruginosa guides: the mask equals the
+   exact rule (second-nearest distance >= 4, from the k=2 top-k), the
+   3-gram count kernel was launched, and each tier's size and seconds are
+   printed.  Reduced, because at genome size the e >= 4 all-vs-all is some
+   1.3e12 pairs of 3-gram counting and a large ambiguous set, a run of its
+   own rather than a smoke phase.
+
+Phase 3c holds the two Levenshtein kernels against their plain versions:
+the 3-gram count on the rows of random codes with N bases and duplicated
+rows (4096 x 200,000, L 20 and 27, t 3 and 4, both directions, the
+threshold's edges), and the Myers top-k on codes with N bases, duplicates
+and near-identical pairs (LEVEN_SHAPE, L 20, 27 and 32, k 1, 2, 5, 64 and
+128).
 
 The line before the last is a JSON object describing each kernel (launches
-in the design run of its layout, phase 6 or 7, the largest error seen, its
-time and its plain version's time in ms at full P. aeruginosa size); the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
-outside a checkout, it exits non-zero and prints no result.
+in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
+for the Myers top-k, phase 10 for the 3-gram count; the largest error
+seen; its time and its plain version's time in ms at the sizes its phase
+prints); the last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
 import gzip
 import hashlib
@@ -65,6 +91,17 @@ GOLDEN = os.path.join(ROOT, "tests", "test_data",
 PA_RETAINED = 1_139_266
 #: control-sampling seed of the design runs
 SEED = 20261016
+#: (queries, database guides) of the phase-3c checks: the 3-gram count,
+#: and the Myers top-k, whose plain DP takes well under a second a call
+FEATURE_SHAPE = (4096, 200_000)
+LEVEN_SHAPE = (2048, 100_000)
+#: rows of the NGG/3prime/20 design table at dist 2, Hamming or
+#: Levenshtein (the JAX package's run, BENCH_r05.json leven_e2e_guides)
+PA_TABLE_ROWS = 105_590
+#: guides of the reduced all-vs-all 3-gram tier run (phase 10)
+TIER_GUIDES = 131_072
+#: the design table's two neighbor-list columns
+NEIGHBOR_COLS = ["Similar guides", "Similar guide distances"]
 
 
 def say(msg: str) -> None:
@@ -221,6 +258,75 @@ def phase_packed_kernels(pcount, ptopk, dev):
                                       times.items()))
 
 
+def leven_codes(rng, nq, nd, length):
+    """random_codes plus database rows at Levenshtein distance 1 and 2 from
+    queries: substitutions, and a deletion with an insertion (a shift)."""
+    q, db = random_codes(rng, nq, nd, length)
+    near = min(nq, nd // 4)
+    rows = rng.integers(0, nd, near)
+    src = q[:near].copy()
+    subs = rng.random(near) < 0.5
+    src[subs, rng.integers(0, length, subs.sum())] = rng.integers(
+        0, 4, subs.sum())
+    shift = ~subs
+    src[shift, :-1] = src[shift, 1:]
+    src[shift, -1] = rng.integers(0, 4, shift.sum())
+    db[rows] = src
+    return q, db
+
+
+def phase_leven_kernels(fcount, ltopk, dev):
+    from guidemaker_tpu_torch.knn import stream
+    from guidemaker_tpu_torch.knn.dp import leven_topk_plain
+    from guidemaker_tpu_torch.knn.features import (feature_count_plain,
+                                                   gram_rows)
+    from guidemaker_tpu_torch.knn.hamming import pack_codes
+    rng = np.random.default_rng(2468)
+    times = {}
+    fq, fd = FEATURE_SHAPE
+    for length in (20, 27):
+        qn, dbn = random_codes(rng, fq, fd, length)
+        qc, dbc = (torch.from_numpy(a).to(dev) for a in (qn, dbn))
+        glen = length - 2
+        for t in (3, 4):
+            plain_q, plain_db = gram_rows(qc, 0), gram_rows(dbc, 0)
+            dil_q, dil_db = gram_rows(qc, t), gram_rows(dbc, t)
+            for way, q, db in (("1", plain_q, dil_db), ("2", dil_q, plain_db)):
+                for thresh in (glen - 3 * t - 1, 0, glen - 1, glen):
+                    fcount.compare(
+                        stream.feature_count(q, db, glen, thresh),
+                        feature_count_plain(q, db, thresh),
+                        f"feature count L={length} t={t} direction {way} "
+                        f"thresh={thresh}")
+            if length == 20 and t == 3:
+                thresh = glen - 3 * t - 1
+                times["feature count"] = cuda_ms(
+                    lambda: stream.feature_count(plain_q, dil_db, glen,
+                                                 thresh), 5)
+                times["feature count plain"] = cuda_ms(
+                    lambda: feature_count_plain(plain_q, dil_db, thresh), 2)
+    nq, nd = LEVEN_SHAPE
+    for length in (20, 27, 32):
+        qn, dbn = leven_codes(rng, nq, nd, length)
+        q = pack_codes(torch.from_numpy(qn).to(dev))
+        db = pack_codes(torch.from_numpy(dbn).to(dev))
+        for k in (1, 2, 5, 64, 128):
+            got = stream.leven_topk(q, db, length, k)
+            t0 = time.time()
+            want = leven_topk_plain(q, db, length, k)
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+            ltopk.compare(got, want, f"leven top-k L={length} k={k}")
+            if length == 20 and k == 5:
+                times["leven top-k"] = cuda_ms(
+                    lambda: stream.leven_topk(q, db, 20, 5), 3)
+                times["leven top-k plain"] = plain_s * 1e3
+    say(f"phase 3c Levenshtein kernels vs plain: feature count exact at "
+        f"{fq} x {fd} L=20,27 t=3,4 both directions 4 thresholds; leven "
+        f"top-k exact at {nq} x {nd} L=20,27,32 k 1,2,5,64,128; L=20 ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+
 def phase_cruddii(dev):
     from guidemaker_tpu_torch import definitions
     from guidemaker_tpu_torch.annotate import Annotation
@@ -253,18 +359,20 @@ def phase_cruddii(dev):
         f"{time.time() - t0:.2f} s)")
 
 
-def phase_retention(count, pcount, dev):
+def pa_guides():
+    """The unique NGG/5prime/20 guides of P. aeruginosa, in scan order."""
     import pandas as pd
     from guidemaker_tpu_torch.io import parse_genbank
+    from guidemaker_tpu_torch.scan import PamTarget
+    recs = [r.upper() for r in parse_genbank(PA_GBK)]
+    targets = PamTarget("NGG", "5prime", "hamming").find_targets(recs, 20)
+    return pd.Series(pd.unique(targets["target"]), dtype="str")
+
+
+def phase_retention(count, pcount, dev, uniq, t_host):
     from guidemaker_tpu_torch.knn import KnnIndex, stream
     from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
-    from guidemaker_tpu_torch.scan import PamTarget
-    t0 = time.time()
-    recs = [r.upper() for r in parse_genbank(PA_GBK)]
-    targets = PamTarget("NGG", "5prime", "hamming").find_targets(recs, 20)
-    uniq = pd.Series(pd.unique(targets["target"]), dtype="str")
-    t_host = time.time() - t0
     counts = {}
     for layout, packed in (("2-bit", False), ("packed", True)):
         idx = KnnIndex(uniq, device=dev, packed=packed)
@@ -308,33 +416,43 @@ def phase_retention(count, pcount, dev):
 
 
 class StageGrab(logging.Handler):
-    def __init__(self):
+    """Keeps the timing log's lines that start with ``tag``."""
+
+    def __init__(self, tag="[stage]"):
         super().__init__(logging.INFO)
+        self.tag = tag
         self.lines = []
 
     def emit(self, record):
         msg = record.getMessage()
-        if msg.startswith("[stage]"):
+        if msg.startswith(self.tag):
             self.lines.append(msg)
 
 
-def design_run(dev, packed: bool):
-    """The default P. aeruginosa design run with --controls 1000 --seed
-    SEED, through the CLI's parser and run_pipeline, with every launch
-    count set to 0 just before it and read just after."""
-    from guidemaker_tpu_torch import cli
+def all_counters():
     from guidemaker_tpu_torch.knn import stream
+    return (stream.count_launches, stream.topk_launches,
+            stream.packed_count_launches, stream.packed_topk_launches,
+            stream.feature_count_launches, stream.leven_topk_launches)
+
+
+def design_run(dev, packed: bool, extra=()):
+    """The default P. aeruginosa design run with --controls 1000 --seed
+    SEED (and the flags ``extra``), through the CLI's parser and
+    run_pipeline, with every launch count set to 0 just before it and read
+    just after."""
+    from guidemaker_tpu_torch import cli
     from guidemaker_tpu_torch.pipeline import run_pipeline
     out = tempfile.mkdtemp(prefix="gm_smoke_")
     argv = ["--genbank", PA_GBK, "--pamseq", "NGG", "--outdir", out,
-            "--seed", str(SEED), "--log", os.path.join(out, "run.log")]
+            "--seed", str(SEED), "--log", os.path.join(out, "run.log"),
+            *extra]
     cfg = cli.config_from_args(cli.myparser().parse_args(argv))
     timing = logging.getLogger("guidemaker_tpu_torch.timing")
     grab = StageGrab()
     timing.addHandler(grab)
     timing.setLevel(logging.INFO)
-    counters = (stream.count_launches, stream.topk_launches,
-                stream.packed_count_launches, stream.packed_topk_launches)
+    counters = all_counters()
     if packed:
         os.environ["GUIDEMAKER_TPU_PACKED"] = "1"
     else:
@@ -451,12 +569,13 @@ def phase_design(count, topk, dev):
         f"2-bit layout) on {dev}: {len(df)} rows, "
         f"{df['Guide sequence'].nunique()} guides, {wall:.2f} s wall, "
         f"controls stage {stage_seconds(lines, 'controls')} s; launches: "
-        f"count {launches[0]}, top-k {launches[1]}, packed {launches[2:]}; "
+        f"count {launches[0]}, top-k {launches[1]}, packed {launches[2:4]}, "
+        f"Levenshtein {launches[4:]}; "
         f"neighbor lists == plain top-k for {len(need)} queries x "
         f"{len(idx)} guides (kernel {ms:.3f} ms, plain {plain_ms:.3f} ms); "
         f"{controls}; the same frame again from a second search with the "
         f"same seed ({t_again:.2f} s)")
-    return out
+    return out, res.controls
 
 
 def phase_design_packed(pcount, ptopk, dev, codes_out):
@@ -464,7 +583,7 @@ def phase_design_packed(pcount, ptopk, dev, codes_out):
     from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn import stream
     cfg, out, res, launches, wall, lines = design_run(dev, packed=True)
-    pcount.row["launches"], ptopk.row["launches"] = launches[2:]
+    pcount.row["launches"], ptopk.row["launches"] = launches[2:4]
     for line in lines:
         say("  " + line)
     tables = []
@@ -475,7 +594,7 @@ def phase_design_packed(pcount, ptopk, dev, codes_out):
         raise AssertionError("packed design run: targets.csv.gz differs from "
                              "the 2-bit layout's")
     controls = check_controls(res, out, dev)
-    if min(launches[2:]) == 0 or max(launches[:2]) != 0:
+    if min(launches[2:4]) == 0 or max(launches[:2]) != 0:
         raise AssertionError(f"packed design run launches (count, top-k, "
                              f"packed count, packed top-k): {launches}")
     # the phase-2 top-k at full size against the plain packed top-k
@@ -497,9 +616,173 @@ def phase_design_packed(pcount, ptopk, dev, codes_out):
         f"phase 6's ({len(tables[1])} bytes), {wall:.2f} s wall, controls "
         f"stage {stage_seconds(lines, 'controls')} s; launches: packed "
         f"count {launches[2]}, packed top-k {launches[3]}, 2-bit "
-        f"{launches[:2]}; {controls}; phase-2 packed top-k == plain for "
+        f"{launches[:2]}, Levenshtein {launches[4:]}; {controls}; phase-2 "
+        f"packed top-k == plain for "
         f"{len(need)} queries x {n} guides (kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms)")
+
+
+def phase_leven_retention(dev, uniq):
+    from guidemaker_tpu_torch import dna
+    from guidemaker_tpu_torch.knn import KnnIndex, stream
+    from guidemaker_tpu_torch.knn.hamming import pack_codes, unpack_keys
+    ham = KnnIndex(uniq, device=dev)
+    lev = KnnIndex(uniq, metric="leven", device=dev)
+    masks, secs = {}, {}
+    for e in (2, 3):
+        t0 = time.time()
+        masks[e] = lev.pass_distance_filter(uniq, e)
+        secs[e] = time.time() - t0
+        masks[-e] = ham.pass_distance_filter(uniq, e)
+    if not np.array_equal(masks[2], masks[-2]):
+        raise AssertionError("Levenshtein dist-2 mask != Hamming mask")
+    if int(masks[2].sum()) != PA_RETAINED:
+        raise AssertionError(f"Levenshtein dist 2 retained "
+                             f"{int(masks[2].sum())}, expected {PA_RETAINED}")
+    if (masks[3] & ~masks[-3]).any():
+        raise AssertionError("Levenshtein dist-3 mask is not a subset of the "
+                             "Hamming dist-3 mask")
+    sample = np.sort(np.random.default_rng(SEED).choice(
+        len(uniq), min(4096, len(uniq)), replace=False))
+    q = pack_codes(torch.from_numpy(
+        dna.encode_batch(list(uniq.iloc[sample]), 20)).to(dev))
+    t0 = time.time()
+    d2 = unpack_keys(stream.leven_topk(q, lev._db, 20, 2))[0][:, 1]
+    rule = (d2 >= 3).cpu().numpy()
+    t_rule = time.time() - t0
+    if not np.array_equal(masks[3][sample], rule):
+        raise AssertionError("Levenshtein dist-3 mask != the k=2 rule on the "
+                             "sample")
+    say(f"phase 8 P. aeruginosa Levenshtein retention ({len(uniq)} guides, "
+        f"all against all) on {dev}: dist 2 mask == Hamming mask, "
+        f"{int(masks[2].sum())} retained, {secs[2]:.3f} s; dist 3: "
+        f"{int(masks[3].sum())} retained (Hamming {int(masks[-3].sum())}), "
+        f"a subset of the Hamming mask, == the k=2 rule on {len(sample)} "
+        f"sampled queries ({t_rule:.3f} s), {secs[3]:.3f} s")
+
+
+def phase_leven_design(ltopk, dev, hamming_out, hamming_controls):
+    import pandas as pd
+    from guidemaker_tpu_torch.knn import stream
+    from guidemaker_tpu_torch.knn.dp import leven_topk_plain
+    from guidemaker_tpu_torch.knn.hamming import pack_codes, unpack_keys
+    cfg, out, res, launches, wall, lines = design_run(
+        dev, packed=False, extra=("--dtype", "leven"))
+    ltopk.row["launches"] = launches[5]
+    for line in lines:
+        say("  " + line)
+    if launches[5] == 0:
+        raise AssertionError(f"the Levenshtein top-k kernel was not launched "
+                             f"by the leven design run: launches {launches}")
+    df = pd.read_csv(os.path.join(out, "targets.csv.gz"))
+    ref = pd.read_csv(os.path.join(hamming_out, "targets.csv.gz"))
+    if (len(df) != len(ref) or len(df) != PA_TABLE_ROWS
+            or (df["dtype"] != "leven").any()):
+        raise AssertionError(f"leven design table: {len(df)} rows (Hamming "
+                             f"run {len(ref)}, expected {PA_TABLE_ROWS}), "
+                             f"dtype {set(df['dtype'])}")
+    drop = ["dtype"] + NEIGHBOR_COLS
+    if not df.drop(columns=drop).equals(ref.drop(columns=drop)):
+        raise AssertionError("leven design table differs from phase 6's "
+                             "outside dtype and the neighbor lists")
+    # the neighbor lists of a sample of the table's guides against the
+    # plain DP top-k over all guides
+    idx = res.processor.index
+    need = pd.unique(df["Guide sequence"])
+    sample = list(need[np.random.default_rng(SEED).choice(
+        len(need), min(1024, len(need)), replace=False)])
+    q = pack_codes(torch.from_numpy(idx._encode_queries(sample)).to(dev))
+    got = stream.leven_topk(q, idx._db, idx.length, cfg.knum)
+    t0 = time.time()
+    want = leven_topk_plain(q, idx._db, idx.length, cfg.knum)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    ltopk.compare(got, want, "P. aeruginosa leven phase-2 top-k sample")
+    ms = cuda_ms(lambda: stream.leven_topk(q, idx._db, idx.length,
+                                           cfg.knum), 3)
+    qa = pack_codes(torch.from_numpy(idx._encode_queries(list(need))).to(dev))
+    ms_all = cuda_ms(lambda: stream.leven_topk(qa, idx._db, idx.length,
+                                               cfg.knum), 1)
+    d, i = (t.cpu().numpy() for t in unpack_keys(want))
+    seqs = idx.seqs
+    expect = {s: (";".join(seqs[j] for j in i[r] if j >= 0),
+                  ";".join(str(x) for x in d[r] if x >= 0))
+              for r, s in enumerate(sample)}
+    rows = df[df["Guide sequence"].isin(expect)]
+    for col, pos in zip(NEIGHBOR_COLS, (0, 1)):
+        exp = rows["Guide sequence"].map(lambda s: expect[s][pos])
+        if not (rows[col].astype(str) == exp).all():
+            raise AssertionError(f"leven design column {col!r} differs from "
+                                 f"the plain top-k on the sample")
+    controls = check_controls(res, out, dev)
+    if not res.controls.equals(hamming_controls):
+        raise AssertionError("leven design run controls != phase 6's frame")
+    n, nq = len(idx), len(need)
+    say(f"phase 9 P. aeruginosa design run (--dtype leven --controls 1000 "
+        f"--seed {SEED}, 2-bit layout) on {dev}: {len(df)} rows (expected "
+        f"{PA_TABLE_ROWS}) == phase 6's table but for dtype and the neighbor "
+        f"lists, {wall:.2f} s wall, "
+        f"controls stage {stage_seconds(lines, 'controls')} s; launches: "
+        f"2-bit {launches[:2]}, packed {launches[2:4]}, feature count "
+        f"{launches[4]}, leven top-k {launches[5]}; neighbor lists == plain "
+        f"DP top-k for {len(sample)} sampled guides x {n} (kernel {ms:.3f} "
+        f"ms, plain {plain_ms:.3f} ms); all {nq} guides x {n} in "
+        f"{ms_all:.3f} ms ({nq * n / ms_all / 1e9:.4f} T pairs/s); "
+        f"{controls}; controls == phase 6's frame")
+    ltopk.row["ms"], ltopk.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
+
+
+def phase_leven_tiers(fcount, dev, uniq):
+    from guidemaker_tpu_torch.knn import KnnIndex, stream
+    from guidemaker_tpu_torch.knn.features import (feature_count_plain,
+                                                   gram_rows)
+    from guidemaker_tpu_torch.knn.hamming import unpack_keys
+    sub = uniq.iloc[:TIER_GUIDES].reset_index(drop=True)
+    idx = KnnIndex(sub, metric="leven", device=dev)
+    timing = logging.getLogger("guidemaker_tpu_torch.timing")
+    grab = StageGrab("[sub] leven")
+    timing.addHandler(grab)
+    timing.setLevel(logging.INFO)
+    try:
+        for c in all_counters():
+            c.reset()
+        t0 = time.time()
+        mask = idx.pass_distance_filter(sub, 4)
+        wall = time.time() - t0
+        launches = [c.n for c in all_counters()]
+    finally:
+        timing.removeHandler(grab)
+    fcount.row["launches"] = launches[4]
+    if launches[4] == 0:
+        raise AssertionError(f"the 3-gram count kernel was not launched at "
+                             f"dist 4: launches {launches}")
+    t0 = time.time()
+    d2 = unpack_keys(stream.leven_topk(idx._db, idx._db, 20, 2))[0][:, 1]
+    rule = (d2 >= 4).cpu().numpy()
+    t_rule = time.time() - t0
+    if not np.array_equal(mask, rule):
+        raise AssertionError(f"dist-4 tier mask != the k=2 rule on "
+                             f"{(mask != rule).sum()} guides")
+    for line in grab.lines:
+        say("  " + line)
+    # the tier-1 count at this size, kernel and plain
+    codes = torch.from_numpy(idx._codes).to(dev)
+    q, db = gram_rows(codes, 0), gram_rows(codes, 3)
+    got = stream.feature_count(q, db, 18, 8)
+    t0 = time.time()
+    want = feature_count_plain(q, db, 8)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    fcount.compare(got, want, "P. aeruginosa tier-1 3-gram count")
+    ms = cuda_ms(lambda: stream.feature_count(q, db, 18, 8), 3)
+    fcount.row["ms"], fcount.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
+    n = TIER_GUIDES
+    say(f"phase 10 Levenshtein dist 4 on the first {n} P. aeruginosa guides, "
+        f"all against all, on {dev}: {int(mask.sum())} retained == the k=2 "
+        f"rule ({t_rule:.3f} s), pass_distance_filter {wall:.3f} s; "
+        f"launches: 2-bit {launches[:2]}, feature count {launches[4]}, leven "
+        f"top-k {launches[5]}; tier-1 count kernel {ms:.3f} ms "
+        f"({n * n / ms / 1e9:.4f} T pairs/s), plain {plain_ms:.3f} ms")
 
 
 def main() -> int:
@@ -539,14 +822,27 @@ def main() -> int:
                     "guidemaker_tpu/knn/pallas_packed.py:182")
     ptopk = Kernel("packed_topk", "guidemaker_tpu_torch/csrc/packed_topk.cu",
                    "guidemaker_tpu/knn/pallas_packed.py:264")
+    fcount = Kernel("feature_count",
+                    "guidemaker_tpu_torch/csrc/feature_count.cu",
+                    "guidemaker_tpu/knn/pallas_stream.py:164 (3-gram form, "
+                    "guidemaker_tpu/knn/leven.py:684, 786)")
+    ltopk = Kernel("leven_topk", "guidemaker_tpu_torch/csrc/leven_topk.cu",
+                   "guidemaker_tpu/knn/leven.py:59, "
+                   "guidemaker_tpu/knn/leven.py:126 (XLA, not Pallas)")
     phase_kernels(count, topk, dev)
     phase_packed_kernels(pcount, ptopk, dev)
+    phase_leven_kernels(fcount, ltopk, dev)
     phase_cruddii(dev)
-    phase_retention(count, pcount, dev)
-    codes_out = phase_design(count, topk, dev)
-    phase_design_packed(pcount, ptopk, dev, codes_out)
-    say(json.dumps({"kernels": [count.row, topk.row, pcount.row,
-                                ptopk.row]}))
+    t0 = time.time()
+    uniq = pa_guides()
+    phase_retention(count, pcount, dev, uniq, time.time() - t0)
+    hamming_out, hamming_controls = phase_design(count, topk, dev)
+    phase_design_packed(pcount, ptopk, dev, hamming_out)
+    phase_leven_retention(dev, uniq)
+    phase_leven_design(ltopk, dev, hamming_out, hamming_controls)
+    phase_leven_tiers(fcount, dev, uniq)
+    say(json.dumps({"kernels": [count.row, topk.row, pcount.row, ptopk.row,
+                                fcount.row, ltopk.row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -42,7 +42,7 @@ def myparser() -> argparse.ArgumentParser:
                         help='Length of a seed region near the PAM site required to be unique. Default: 10.')
     parser.add_argument('--dtype', type=str, choices=['hamming', 'leven'],
                         default='hamming',
-                        help='Select the distance type. Default: hamming. (leven is not ported yet.)')
+                        help='Select the distance type. Default: hamming.')
     parser.add_argument('--dist', type=int, choices=range(0, 6, 1),
                         metavar="[0-5]", default=2,
                         help='Minimum edit distance from any other potential guide. Default: 2.')

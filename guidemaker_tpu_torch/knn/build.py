@@ -22,7 +22,7 @@ from ..definitions import BUILD_DIR, ROOT_DIR
 
 CSRC_DIR = os.path.join(ROOT_DIR, "csrc")
 SOURCES = ("hamming_count.cu", "hamming_topk.cu", "packed_count.cu",
-           "packed_topk.cu")
+           "packed_topk.cu", "feature_count.cu", "leven_topk.cu")
 HEADERS = ("hamming_common.cuh", "packed_common.cuh", "topk_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,5 +101,9 @@ def library() -> ctypes.CDLL:
             lib.gm_packed_count.restype = I
             lib.gm_packed_topk.argtypes = [P, I, P, I, I, I, I, I, P, P, P]
             lib.gm_packed_topk.restype = I
+            lib.gm_feature_count.argtypes = [P, I, P, I, I, I, I, P, P]
+            lib.gm_feature_count.restype = I
+            lib.gm_leven_topk.argtypes = [P, I, P, I, I, I, I, I, P, P, P]
+            lib.gm_leven_topk.restype = I
             _lib = lib
         return _lib

@@ -1,10 +1,13 @@
-"""Exact Hamming k-NN index over guide sequences, on one torch device.
+"""Exact k-NN index over guide sequences (Hamming or Levenshtein), on one
+torch device.
 
 The database is a code matrix, packed once into ``(n, 2)`` int64 rows that
-stay resident on the index's device.  On a CUDA device every query and
-retention pass runs the hand-written kernels of ``csrc/``; on the CPU it
-runs their plain versions.  Distances are exact and tie-broken by database
-index, so results do not depend on the device.
+stay resident on the index's device, whatever the metric.  On a CUDA device
+every query and retention pass runs the hand-written kernels of ``csrc/``;
+on the CPU it runs their plain versions.  Distances are exact and
+tie-broken by database index, so results do not depend on the device.
+The metric governs :meth:`KnnIndex.query` and retention; the control
+search's counts and k=1 queries are Hamming on either metric.
 
 The packed-pair layout (:mod:`.packed`, two guides per 128-lane int8 row)
 is an opt-in, as in the JAX package: ``packed=True``, or
@@ -28,6 +31,7 @@ from ..util import resolve_device
 from . import packed as pk
 from . import stream
 from .hamming import MAX_LEN, pack_codes, unpack_keys
+from .leven import leven_pass_filter
 
 logger = logging.getLogger(__name__)
 
@@ -50,7 +54,8 @@ def use_packed(length: int) -> bool:
 class KnnIndex:
     """An exact nearest-neighbor index over equal-length guide sequences.
 
-    ``packed`` selects the packed-pair layout (``None``: read
+    ``metric`` is ``"hamming"`` or ``"leven"`` (Levenshtein).  ``packed``
+    selects the packed-pair layout of the Hamming calls (``None``: read
     ``GUIDEMAKER_TPU_PACKED``, as the JAX package does); ``True`` with
     guides longer than 21 bases raises.
     """
@@ -59,11 +64,10 @@ class KnnIndex:
                  packed=None):
         if len(seqs) == 0:
             raise ValueError("cannot build an index over zero sequences")
-        if metric != "hamming":
-            raise NotImplementedError(
-                "Levenshtein indexes are not ported yet (ROADMAP.md, "
-                "modules still to port: Levenshtein)")
-        self.metric = "hamming"
+        if metric not in ("hamming", "leven"):
+            raise ValueError(f"metric must be 'hamming' or 'leven', got "
+                             f"{metric!r}")
+        self.metric = metric
         self.device = resolve_device(device)
         if isinstance(seqs, (list, tuple)):
             self._seqs_list: List[str] = list(seqs)
@@ -232,14 +236,21 @@ class KnnIndex:
 
     def query_codes(self, qc: np.ndarray,
                     k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """query() on pre-encoded (nq, L) uint8 codes."""
-        return self.hamming_query_codes(qc, k)
+        """query() on pre-encoded (nq, L) uint8 codes, by the index's
+        metric.  A Levenshtein query takes k <= 128."""
+        if self.metric == "hamming":
+            return self.hamming_query_codes(qc, k)
+        if qc.shape[0] == 0:
+            return (np.empty((0, k), np.int32), np.empty((0, k), np.int32))
+        keys = stream.leven_topk(pack_codes(self._as_codes(qc)), self._db,
+                                 self.length, k)
+        return _host_lists(keys, k)
 
     def hamming_query_codes(self, qc: np.ndarray,
                             k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact Hamming k-NN on pre-encoded (nq, L) uint8 codes."""
-        nq = qc.shape[0]
-        if nq == 0:
+        """Exact Hamming k-NN on pre-encoded (nq, L) uint8 codes, on either
+        metric (the control search's rule is Hamming by definition)."""
+        if qc.shape[0] == 0:
             return (np.empty((0, k), np.int32), np.empty((0, k), np.int32))
         q = self._as_codes(qc)
         if self._packed_for(q):
@@ -248,12 +259,7 @@ class KnnIndex:
         else:
             keys = stream.hamming_topk(pack_codes(q), self._db, self.length,
                                        k)
-        dist, idx = (t.cpu().numpy() for t in unpack_keys(keys))
-        if dist.shape[1] < k:
-            pad = np.full((nq, k - dist.shape[1]), -1, dtype=np.int32)
-            dist = np.concatenate([dist, pad], axis=1)
-            idx = np.concatenate([idx, pad], axis=1)
-        return dist, idx
+        return _host_lists(keys, k)
 
     def pass_distance_filter(self, seqs: Sequence[str],
                              editdist: int) -> np.ndarray:
@@ -263,8 +269,9 @@ class KnnIndex:
         (guidemaker/core.py:509-522).
 
         Where the counting shortcut is exact it runs a count kernel, one
-        pass per guide pair; otherwise it derives the answer from a k=2
-        query.
+        pass per guide pair (on a Levenshtein index, the tiers of
+        :func:`.leven.leven_pass_filter`); otherwise it derives the answer
+        from a k=2 query.
         """
         if len(seqs) == 0:
             return np.zeros(0, dtype=bool)
@@ -272,10 +279,14 @@ class KnnIndex:
             # reference semantics: dists[1] is padding (-1) -> nothing passes
             return np.zeros(len(seqs), dtype=bool)
         if editdist <= self.length and self._counting_filter_valid(seqs):
-            if len(seqs) == self._n and self._seqs_equal_db(seqs):
-                qc = self._codes    # all-vs-all: no re-encoding
-            else:
-                qc = self._encode_queries(seqs)
+            all_vs_all = len(seqs) == self._n and self._seqs_equal_db(seqs)
+            if self.metric == "leven":
+                db = self._as_codes(self._codes)
+                q = db if all_vs_all else self._as_codes(
+                    self._encode_queries(seqs))
+                return leven_pass_filter(q, db, editdist).cpu().numpy()
+            # all-vs-all: no re-encoding
+            qc = self._codes if all_vs_all else self._encode_queries(seqs)
             counts = self._count(self._as_codes(qc), editdist)
             # dists[1] >= editdist  <=>  count(dist < editdist) <= 1: for
             # editdist > 0 the self-hit always contributes exactly 1; for
@@ -354,3 +365,14 @@ class KnnIndex:
             device = _SAVED_BACKENDS[saved]
         return cls(dna.decode_rows(z["codes"]), metric=str(z["metric"]),
                    device=device)
+
+
+def _host_lists(keys: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Packed keys -> host (dist, idx), each (nq, k) int32, -1 beyond the
+    keys' width."""
+    dist, idx = (t.cpu().numpy() for t in unpack_keys(keys))
+    if dist.shape[1] < k:
+        pad = np.full((dist.shape[0], k - dist.shape[1]), -1, dtype=np.int32)
+        dist = np.concatenate([dist, pad], axis=1)
+        idx = np.concatenate([idx, pad], axis=1)
+    return dist, idx

@@ -6,11 +6,14 @@ replace.  The 2-D-grid top-k of ``pallas_hamming.py`` folds into the same
 top-k kernel: its split from the streaming one existed only because of the
 TPU's cost per grid step.  ``packed_count`` and ``packed_topk`` replace the
 two kernels of ``pallas_packed.py``, on the packed-pair layout of
-:mod:`.packed`.
+:mod:`.packed`.  ``feature_count`` replaces the count kernel where the
+Levenshtein filter calls it on 3-gram features (:mod:`.features`), and
+``leven_topk`` the JAX package's Myers top-k (``knn/leven.py``, XLA).
 
 On a CPU tensor a wrapper runs its kernel's plain version
-(:mod:`.hamming`, :mod:`.packed`).  On a CUDA tensor it launches the kernel
-on the current stream, without synchronising, or raises.  Each wrapper
+(:mod:`.hamming`, :mod:`.packed`, :mod:`.features`, :mod:`.dp`).  On a
+CUDA tensor it launches the kernel on the current stream, without
+synchronising, or raises.  Each wrapper
 counts its launches, so a run can show that it went through the kernel.
 """
 from __future__ import annotations
@@ -20,6 +23,8 @@ import threading
 import torch
 
 from . import build
+from .dp import leven_topk_plain
+from .features import MAX_WORDS, feature_count_plain
 from .hamming import (MAX_DB, MAX_K, MAX_LEN, hamming_count_plain,
                       hamming_topk_plain)
 from .packed import (LANES, MAX_PACKED_LEN, packed_count_plain,
@@ -46,6 +51,8 @@ count_launches = LaunchCounter()
 topk_launches = LaunchCounter()
 packed_count_launches = LaunchCounter()
 packed_topk_launches = LaunchCounter()
+feature_count_launches = LaunchCounter()
+leven_topk_launches = LaunchCounter()
 
 #: blocks the split choice aims to have in flight on each SM
 _BLOCKS_PER_SM = 8
@@ -220,4 +227,83 @@ def packed_topk(q: torch.Tensor, db: torch.Tensor, nd: int, length: int,
         raise RuntimeError(f"packed_topk kernel launch failed: CUDA error "
                            f"{err}")
     packed_topk_launches.add()
+    return out
+
+
+def _check_features(q: torch.Tensor, db: torch.Tensor, n_words: int) -> None:
+    if not 1 <= n_words <= MAX_WORDS:
+        raise ValueError(f"feature rows must have 1..{MAX_WORDS} words, got "
+                         f"{n_words}")
+    for name, t in (("q", q), ("db", db)):
+        if t.dtype != torch.int64 or t.dim() != 2 or t.shape[1] != n_words:
+            raise ValueError(f"{name} must be (n, {n_words}) int64 feature "
+                             f"rows, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.device != db.device:
+        raise ValueError(f"q on {q.device} but db on {db.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if not 1 <= db.shape[0] <= MAX_DB:
+        raise ValueError(f"database must hold 1..{MAX_DB} rows, "
+                         f"got {db.shape[0]}")
+
+
+def feature_count(q_rows: torch.Tensor, db_rows: torch.Tensor, n_words: int,
+                  thresh: int) -> torch.Tensor:
+    """(nq,) int32: database rows whose feature dot with each query row
+    exceeds ``thresh``; rows are (n, n_words) int64 bit-packed 0/1
+    features (:func:`.features.gram_rows`)."""
+    _check_features(q_rows, db_rows, n_words)
+    if not 0 <= thresh <= 64 * n_words:
+        raise ValueError(f"thresh must be in 0..{64 * n_words}, got {thresh}")
+    if q_rows.device.type == "cpu":
+        return feature_count_plain(q_rows, db_rows, thresh)
+    nq, nd = q_rows.shape[0], db_rows.shape[0]
+    out = torch.zeros(nq, dtype=torch.int32, device=q_rows.device)
+    if nq == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(q_rows.device):
+        err = lib.gm_feature_count(
+            q_rows.data_ptr(), nq, db_rows.data_ptr(), nd, n_words, thresh,
+            _n_splits(nq, nd, 256, q_rows.device), out.data_ptr(),
+            torch.cuda.current_stream(q_rows.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"feature_count kernel launch failed: CUDA error "
+                           f"{err}")
+    feature_count_launches.add()
+    return out
+
+
+def leven_topk(q: torch.Tensor, db: torch.Tensor, length: int,
+               k: int) -> torch.Tensor:
+    """(nq, min(k, nd)) int32 packed keys ``(dist << 24) | idx`` of each
+    query's nearest database rows by Levenshtein distance, ascending, on
+    (n, 2) packed rows.  An N matches nothing.  ``k`` above 128, the
+    kernel's list, raises rather than returning fewer neighbors."""
+    _check(q, db, length)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    if q.device.type == "cpu":
+        return leven_topk_plain(q, db, length, k)
+    nq, nd = q.shape[0], db.shape[0]
+    k_eff = min(k, nd)
+    out = torch.empty((nq, k_eff), dtype=torch.int32, device=q.device)
+    if nq == 0:
+        return out
+    kcap = 1 << (k_eff - 1).bit_length()
+    n_splits = _n_splits(nq, nd, 256, q.device)
+    partial = torch.empty((nq, n_splits, kcap), dtype=torch.int32,
+                          device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.gm_leven_topk(
+            q.data_ptr(), nq, db.data_ptr(), nd, length, k_eff, kcap,
+            n_splits, partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"leven_topk kernel launch failed: CUDA error "
+                           f"{err}")
+    leven_topk_launches.add()
     return out

@@ -6,8 +6,8 @@ DataFrames, with the CLI as a thin wrapper.  The k-NN stages run on
 ``PipelineConfig.device``: a CUDA card by default, the CPU only when asked.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: Levenshtein distance (``dtype="leven"``), Doench and CFD scoring,
-and plots (ROADMAP.md, modules still to port).
+skipped: Doench and CFD scoring, and plots (ROADMAP.md, modules still to
+port).
 """
 from __future__ import annotations
 
@@ -82,8 +82,6 @@ class PipelineConfig:
         """Raise ``NotImplementedError`` for an option whose module is not
         ported yet, naming its ROADMAP.md entry."""
         missing = []
-        if self.dtype != "hamming":
-            missing.append("dtype='leven' (Levenshtein)")
         if self.doench_efficiency_score or self.cfd_score:
             missing.append("Doench/CFD scoring (scoring)")
         if self.plot:

@@ -37,13 +37,17 @@ def stage_timer(name: str):
 
 
 @contextlib.contextmanager
-def substage_timer(name: str):
+def substage_timer(name: str, device: torch.device = None):
     """Like :func:`stage_timer` but tagged ``[sub]``: fine-grained timings
-    inside a stage, kept out of the ``[stage]`` table."""
+    inside a stage, kept out of the ``[stage]`` table.  Given a CUDA
+    ``device``, the block's work on it is waited for before the clock is
+    read, so the time is the device's too."""
     t0 = time.time()
     try:
         yield
     finally:
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
         logger.info("[sub] %-32s %8.3f s", name, time.time() - t0)
 
 

@@ -14,7 +14,6 @@ from guidemaker_tpu_torch import definitions
 from guidemaker_tpu_torch.annotate import Annotation
 from guidemaker_tpu_torch.cli import config_from_args, main, myparser
 from guidemaker_tpu_torch.io import parse_fasta
-from guidemaker_tpu_torch.knn import KnnIndex
 from guidemaker_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from guidemaker_tpu_torch.scan import PamTarget
 from guidemaker_tpu_torch.targets import TargetProcessor
@@ -89,6 +88,21 @@ def test_cli_matches_jax_run(tmp_path, extra, name, root_logging):
     assert got.count(b"\n") > 500
 
 
+@pytest.mark.parametrize("dist", [2, 3, 4])
+def test_leven_run_matches_jax_run(tmp_path, dist):
+    """--dtype leven on C. ruddii: dist 2 takes the Hamming count, dist 3
+    the deletion join beside it, dist 4 the 3-gram tiers."""
+    base = dict(genbank=[GBK], pamseq="NGG", controls=0, dtype="leven",
+                dist=dist)
+    res = run_pipeline(PipelineConfig(outdir=str(tmp_path / "port"),
+                                      device="cpu", **base))
+    jax_run_pipeline(JaxPipelineConfig(outdir=str(tmp_path / "jax"), **base))
+    got = _read_gz(tmp_path / "port" / "targets.csv.gz")
+    assert got == _read_gz(tmp_path / "jax" / "targets.csv.gz")
+    assert res.processor.index.metric == "leven"
+    assert got.count(b"\n") > 500 and b",leven," in got
+
+
 def test_import_leaves_jax_out():
     code = ("import pkgutil, sys, importlib, guidemaker_tpu_torch as g\n"
             "for m in pkgutil.walk_packages(g.__path__, g.__name__ + '.'):\n"
@@ -103,19 +117,13 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("option", [
-    {"dtype": "leven"}, {"doench_efficiency_score": True},
-    {"cfd_score": True}, {"plot": True}])
+    {"doench_efficiency_score": True}, {"cfd_score": True}, {"plot": True}])
 def test_unported_options_raise(tmp_path, option):
     cfg = PipelineConfig(genbank=[GBK], pamseq="NGG", outdir=str(tmp_path),
                          device="cpu", **{"controls": 0, **option})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pipeline(cfg)
     assert not (tmp_path / "targets.csv.gz").exists()
-
-
-def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KnnIndex(["ACGTACGTACGTACGTACGT"], metric="leven", device="cpu")
 
 
 def test_cli_device_and_defaults():
