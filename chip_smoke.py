@@ -48,7 +48,24 @@ Phases, one line each; any failure exits non-zero:
    3-gram count kernel was launched, and each tier's size and seconds are
    printed.  Reduced, because at genome size the e >= 4 all-vs-all is some
    1.3e12 pairs of 3-gram counting and a large ambiguous set, a run of its
-   own rather than a smoke phase.
+   own rather than a smoke phase;
+11. the scored design run: phase 6's run with --knum 3
+   --doench_efficiency_score --cfd_score.  The three golden Doench floats
+   are float32-exact; the table holds phase 6's rows less those whose
+   target_seq30 holds an N, and equals phase 6's table on every column
+   they share but the two neighbor-list columns; Efficiency is float32
+   and finite; Max CFD is in [0, 1] and below 1 somewhere; CFD Similar
+   Guides equals the scalar calc_cfd on 1,000 sampled rows; the neighbor
+   lists equal the plain top-k at k 3 on the card; the controls equal
+   phase 6's frame.  No plot: the page would embed every row of the table;
+12. the web app's command (``app.build_cli_args`` with the app's defaults:
+   knum 3, --controls 10, --plot, both scores) on the bundled C. ruddii
+   demo genome, run by the app's ``run_command`` as a subprocess on the
+   card and again with ``device="cpu"``: both exit 0 and write
+   targets.csv.gz with the score columns, one <accession>.html holding the
+   Vega-Lite spec and controls.csv.gz with 10 rows, and the two tables
+   are equal byte for byte (the seeded controls differ between CPU and
+   CUDA, so they are not compared).
 
 Phase 3c holds the two Levenshtein kernels against their plain versions:
 the 3-gram count on the rows of random codes with N bases and duplicated
@@ -61,7 +78,8 @@ The line before the last is a JSON object describing each kernel (launches
 in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
 for the Myers top-k, phase 10 for the 3-gram count; the largest error
 seen; its time and its plain version's time in ms at the sizes its phase
-prints); the last line is ``{"ok": true, "device": {...}}``.  Without a
+prints, and for the 2-bit top-k also at k 3 from phase 11); the last line
+is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
 import gzip
@@ -102,6 +120,14 @@ PA_TABLE_ROWS = 105_590
 TIER_GUIDES = 131_072
 #: the design table's two neighbor-list columns
 NEIGHBOR_COLS = ["Similar guides", "Similar guide distances"]
+#: the reference's golden Doench 2016 scores, float32-exact
+GOLDEN_30MERS = np.array(["GTACAAAGCACGTTATTAGATGGTGGGAAC",
+                          "TCTAATCACGACAGCATCACTATTAGGCCG",
+                          "TGAAATGTCTCTTATCTCTGTGTAAGGCTC"])
+GOLDEN_DOENCH = np.array([[0.59383124], [0.28157765], [0.5276569]],
+                         dtype=np.float32)
+#: rows of the scored table whose CFD lists phase 11 recomputes one by one
+CFD_SAMPLE = 1000
 
 
 def say(msg: str) -> None:
@@ -514,12 +540,40 @@ def stage_seconds(lines, name):
     return "n/a"
 
 
-def phase_design(count, topk, dev):
+def check_neighbor_lists(topk, res, k, dev):
+    """The design table's neighbor lists against the plain top-k at ``k``
+    over all guides, on the card; returns the query count and the
+    kernel's and the plain version's ms."""
     import pandas as pd
-    from guidemaker_tpu_torch.io import parse_genbank
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.hamming import (hamming_topk_plain,
                                                   pack_codes, unpack_keys)
+    df, idx = res.targets, res.processor.index
+    need = list(pd.unique(df["Guide sequence"]))
+    q = pack_codes(torch.from_numpy(idx._encode_queries(need)).to(dev))
+    got = stream.hamming_topk(q, idx._db, idx.length, k)
+    t0 = time.time()
+    want = hamming_topk_plain(q, idx._db, idx.length, k)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    topk.compare(got, want, f"P. aeruginosa phase-2 top-k at k {k}")
+    ms = cuda_ms(lambda: stream.hamming_topk(q, idx._db, idx.length, k), 3)
+    d, i = (t.cpu().numpy() for t in unpack_keys(want))
+    seqs = idx.seqs
+    expect = {s: (";".join(seqs[j] for j in i[r] if j >= 0),
+                  ";".join(str(x) for x in d[r] if x >= 0))
+              for r, s in enumerate(need)}
+    for col, pos in zip(NEIGHBOR_COLS, (0, 1)):
+        exp = df["Guide sequence"].map(lambda s: expect[s][pos])
+        if not (df[col].astype(str) == exp).all():
+            raise AssertionError(f"design table column {col!r} differs from "
+                                 f"the plain top-k at k {k}")
+    return need, ms, plain_ms
+
+
+def phase_design(count, topk, dev):
+    import pandas as pd
+    from guidemaker_tpu_torch.io import parse_genbank
     cfg, out, res, launches, wall, lines = design_run(dev, packed=False)
     count.row["launches"], topk.row["launches"] = launches[:2]
     for line in lines:
@@ -532,29 +586,9 @@ def phase_design(count, topk, dev):
     if min(launches[:2]) == 0:
         raise AssertionError(f"a 2-bit kernel was not launched by the design "
                              f"run: launches {launches}")
-    # the neighbor lists of the phase-2 query set against the plain top-k
-    idx = res.processor.index
-    need = list(pd.unique(df["Guide sequence"]))
-    q = pack_codes(torch.from_numpy(idx._encode_queries(need)).to(dev))
-    got = stream.hamming_topk(q, idx._db, idx.length, cfg.knum)
-    t0 = time.time()
-    want = hamming_topk_plain(q, idx._db, idx.length, cfg.knum)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
-    topk.compare(got, want, "P. aeruginosa phase-2 top-k")
-    ms = cuda_ms(lambda: stream.hamming_topk(q, idx._db, idx.length,
-                                             cfg.knum), 3)
+    need, ms, plain_ms = check_neighbor_lists(topk, res, cfg.knum, dev)
     topk.row["ms"], topk.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
-    d, i = (t.cpu().numpy() for t in unpack_keys(want))
-    seqs = idx.seqs
-    expect = {s: (";".join(seqs[j] for j in i[r] if j >= 0),
-                  ";".join(str(x) for x in d[r] if x >= 0))
-              for r, s in enumerate(need)}
-    for col, pos in (("Similar guides", 0), ("Similar guide distances", 1)):
-        exp = df["Guide sequence"].map(lambda s: expect[s][pos])
-        if not (df[col].astype(str) == exp).all():
-            raise AssertionError(f"design table column {col!r} differs from "
-                                 f"the plain top-k")
+    idx = res.processor.index
     controls = check_controls(res, out, dev)
     # the same seed searches the same candidates again
     t0 = time.time()
@@ -575,7 +609,7 @@ def phase_design(count, topk, dev):
         f"{len(idx)} guides (kernel {ms:.3f} ms, plain {plain_ms:.3f} ms); "
         f"{controls}; the same frame again from a second search with the "
         f"same seed ({t_again:.2f} s)")
-    return out, res.controls
+    return out, res.controls, df
 
 
 def phase_design_packed(pcount, ptopk, dev, codes_out):
@@ -785,6 +819,131 @@ def phase_leven_tiers(fcount, dev, uniq):
         f"({n * n / ms / 1e9:.4f} T pairs/s), plain {plain_ms:.3f} ms")
 
 
+def phase_scored_design(topk, dev, hamming_controls, hamming_table):
+    import pandas as pd
+    from guidemaker_tpu_torch.score import cfd, doench
+    golden = doench.predict(GOLDEN_30MERS)
+    if golden.dtype != np.float32 or not (golden == GOLDEN_DOENCH).all():
+        raise AssertionError(f"Doench goldens: {golden.ravel().tolist()} != "
+                             f"{GOLDEN_DOENCH.ravel().tolist()}")
+    cfg, out, res, launches, wall, lines = design_run(
+        dev, packed=False, extra=("--knum", "3", "--controls", "1000",
+                                  "--doench_efficiency_score", "--cfd_score"))
+    for line in lines:
+        say("  " + line)
+    if min(launches[:2]) == 0:
+        raise AssertionError(f"a 2-bit kernel was not launched by the scored "
+                             f"design run: launches {launches}")
+    df = res.targets
+    written = pd.read_csv(os.path.join(out, "targets.csv.gz"))
+    keep = ~hamming_table["target_seq30"].str.contains("N").to_numpy()
+    if len(df) != int(keep.sum()) or len(written) != len(df):
+        raise AssertionError(f"scored table: {len(df)} rows, {len(written)} "
+                             f"written; phase 6's {len(hamming_table)} less "
+                             f"{int((~keep).sum())} with an N is "
+                             f"{int(keep.sum())}")
+    eff = df["Efficiency"]
+    if eff.dtype != np.float32 or not np.isfinite(eff.to_numpy()).all():
+        raise AssertionError(f"Efficiency: dtype {eff.dtype}, finite "
+                             f"{np.isfinite(eff.to_numpy()).all()}")
+    max_cfd = df["Max CFD"].to_numpy()
+    if not ((max_cfd >= 0) & (max_cfd <= 1)).all() or not (max_cfd < 1).any():
+        raise AssertionError(f"Max CFD: min {max_cfd.min()} max "
+                             f"{max_cfd.max()}")
+    rows = np.random.default_rng(SEED).choice(
+        len(df), min(CFD_SAMPLE, len(df)), replace=False)
+    mm, _ = cfd.get_mm_pam_scores()
+    for r in rows:
+        g, sims, got = df.iloc[r][["Guide sequence", "Similar guides",
+                                   "CFD Similar Guides"]]
+        want = [cfd.calc_cfd(g, s, mm) for s in sims.split(";")]
+        if [float(x) for x in got] != want:
+            raise AssertionError(f"CFD of row {r} ({g}): {got} != {want}")
+    shared = [c for c in df.columns
+              if c in hamming_table.columns and c not in NEIGHBOR_COLS]
+    ref = hamming_table[keep][shared].reset_index(drop=True)
+    if not df[shared].reset_index(drop=True).equals(ref):
+        raise AssertionError("scored table differs from phase 6's outside "
+                             "the neighbor lists")
+    need, ms, plain_ms = check_neighbor_lists(topk, res, 3, dev)
+    topk.row["ms_k3"], topk.row["plain_ms_k3"] = (round(ms, 3),
+                                                  round(plain_ms, 3))
+    controls = check_controls(res, out, dev)
+    if not res.controls.equals(hamming_controls):
+        raise AssertionError("scored design run controls != phase 6's frame")
+    say(f"phase 11 P. aeruginosa scored design run (--knum 3 --controls 1000 "
+        f"--seed {SEED} --doench_efficiency_score --cfd_score, 2-bit layout) "
+        f"on {dev}: {len(df)} rows (phase 6's {len(hamming_table)} less "
+        f"{int((~keep).sum())} with an N in target_seq30), "
+        f"{wall:.2f} s wall, doench scoring "
+        f"{stage_seconds(lines, 'doench scoring')} s, cfd scoring "
+        f"{stage_seconds(lines, 'cfd scoring')} s, controls stage "
+        f"{stage_seconds(lines, 'controls')} s; Doench goldens float32-exact;"
+        f" Efficiency float32 finite, Max CFD in [{max_cfd.min():g}, "
+        f"{max_cfd.max():g}]; CFD lists == scalar calc_cfd on {CFD_SAMPLE} "
+        f"rows; {len(shared)} shared columns == phase 6's; launches: count "
+        f"{launches[0]}, top-k {launches[1]}, packed {launches[2:4]}, "
+        f"Levenshtein {launches[4:]}; neighbor lists == plain top-k at k 3 "
+        f"for {len(need)} queries x {len(res.processor.index)} guides "
+        f"(kernel {ms:.3f} ms, plain {plain_ms:.3f} ms); {controls}; "
+        f"controls == phase 6's frame")
+
+
+class AppStatus:
+    """The ``st`` that the app's ``run_command`` reports to: a log line."""
+
+    @staticmethod
+    def info(msg):
+        say("  app: " + msg[:300])
+
+    @staticmethod
+    def error(msg):
+        say("  app error: " + msg)
+
+
+def phase_app(dev):
+    import pandas as pd
+    from guidemaker_tpu_torch import app, definitions
+    demo = os.path.join(definitions.DATA_DIR, app.DEMO_GENOMES[0])
+    tables, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        work = tempfile.mkdtemp(prefix=f"gm_app_{device}_")
+        args = app.build_cli_args(
+            workdir=work, logfile=os.path.join(work, "guidemaker.log"),
+            genbank=[demo], restriction_enzymes=["NGRT"], device=device)
+        t0 = time.time()
+        rc = app.run_command(AppStatus, args)
+        secs[device] = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"the app's command on {device} exited {rc}")
+        with gzip.open(os.path.join(work, "targets.csv.gz"), "rb") as fh:
+            tables[device] = fh.read()
+        head = pd.read_csv(io.BytesIO(tables[device]), nrows=1)
+        missing = {"Efficiency", "CFD Similar Guides", "Max CFD"} - set(head)
+        pages = [p for p in os.listdir(work) if p.endswith(".html")]
+        accessions = set(pd.read_csv(io.BytesIO(tables[device]))["Accession"])
+        if missing or sorted(pages) != sorted(f"{a}.html" for a in accessions):
+            raise AssertionError(f"the app's run on {device}: score columns "
+                                 f"missing {missing}, pages {pages}")
+        for page in pages:
+            with open(os.path.join(work, page)) as fh:
+                if "vega-lite/v5.json" not in fh.read():
+                    raise AssertionError(f"{page} holds no Vega-Lite spec")
+        n_ctl = len(pd.read_csv(os.path.join(work, "controls.csv.gz")))
+        if n_ctl != 10:
+            raise AssertionError(f"the app's run on {device}: {n_ctl} "
+                                 f"controls, expected 10")
+    if tables["cuda"] != tables["cpu"]:
+        raise AssertionError("the app's targets.csv.gz differs between the "
+                             "card and the CPU")
+    say(f"phase 12 the app's command on the C. ruddii demo (knum 3, "
+        f"--controls 10, --plot, both scores): exit 0 on cuda "
+        f"({secs['cuda']:.2f} s) and on cpu ({secs['cpu']:.2f} s); "
+        f"targets.csv.gz with the score columns, equal byte for byte "
+        f"({tables['cuda'].count(b'\n') - 1} rows); {len(pages)} Vega-Lite "
+        f"page(s); 10 controls each")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -836,11 +995,14 @@ def main() -> int:
     t0 = time.time()
     uniq = pa_guides()
     phase_retention(count, pcount, dev, uniq, time.time() - t0)
-    hamming_out, hamming_controls = phase_design(count, topk, dev)
+    hamming_out, hamming_controls, hamming_table = phase_design(count, topk,
+                                                               dev)
     phase_design_packed(pcount, ptopk, dev, hamming_out)
     phase_leven_retention(dev, uniq)
     phase_leven_design(ltopk, dev, hamming_out, hamming_controls)
     phase_leven_tiers(fcount, dev, uniq)
+    phase_scored_design(topk, dev, hamming_controls, hamming_table)
+    phase_app(dev)
     say(json.dumps({"kernels": [count.row, topk.row, pcount.row, ptopk.row,
                                 fcount.row, ltopk.row]}))
     print(json.dumps({"ok": True, "device": {

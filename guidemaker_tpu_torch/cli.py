@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import textwrap
 
 from . import __version__, definitions
 from .pipeline import PipelineConfig, run_pipeline
@@ -18,7 +19,14 @@ def myparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="guidemaker-tpu-torch",
         description=("GuideMaker (PyTorch/CUDA port): design gRNA pools in "
-                     "non-model genomes and CRISPR-Cas systems"))
+                     "non-model genomes and CRISPR-Cas systems"),
+        # keeps the epilog's lines as written
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog=textwrap.dedent("""\
+            To run the web app locally, in terminal run:
+            -----------------------------------------------------------------
+            streamlit run """ + str(definitions.WEB_APP) + """
+            -----------------------------------------------------------------"""))
     parser.add_argument('--genbank', '-i', nargs='+', type=str, required=False,
                         help='One or more genbank .gbk or gzipped .gbk files for a single genome. Provide this or GFF/GTF and fasta files')
     parser.add_argument('--fasta', '-f', nargs='+', type=str, required=False,
@@ -71,13 +79,13 @@ def myparser() -> argparse.ArgumentParser:
     parser.add_argument('--filter_by_attribute', nargs="*", default=[],
                         help='List of locus ids. Default: None.')
     parser.add_argument('--doench_efficiency_score', action='store_true',
-                        help="On-target scoring from Doench et al. 2016 - only for NGG PAM. Default: None. (Not ported yet.)")
+                        help="On-target scoring from Doench et al. 2016 - only for NGG PAM. Default: None.")
     parser.add_argument('--cfd_score', action='store_true',
-                        help='CFD score for assessing off-target activity of gRNAs with NGG pam. Default: None. (Not ported yet.)')
+                        help='CFD score for assessing off-target activity of gRNAs with NGG pam. Default: None.')
     parser.add_argument('--keeptemp', action='store_true',
                         help="Option to keep intermediate files")
     parser.add_argument('--plot', action='store_true',
-                        help="Option to create GuideMaker plots (not ported yet)")
+                        help="Option to create GuideMaker plots")
     parser.add_argument('--config', default=str(definitions.CONFIG_PATH),
                         help="Path to YAML formatted configuration file, default is "
                              + str(definitions.CONFIG_PATH))

@@ -4,10 +4,7 @@ The orchestration mirrors the reference CLI flow
 (``guidemaker/cli.py:123-273``) as a callable library function returning
 DataFrames, with the CLI as a thin wrapper.  The k-NN stages run on
 ``PipelineConfig.device``: a CUDA card by default, the CPU only when asked.
-
-Not ported yet, and refused with ``NotImplementedError`` rather than
-skipped: Doench and CFD scoring, and plots (ROADMAP.md, modules still to
-port).
+Scoring and plots run on the host, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +21,9 @@ import pandas as pd
 from . import definitions
 from .annotate import Annotation
 from .io import get_fastas, parse_fasta
+from .plot import GuideMakerPlot
 from .scan import PamTarget
+from .score import cfd_score, get_doench_efficiency_score
 from .targets import TargetProcessor
 from .util import maybe_profile, resolve_device, stage_timer, substage_timer
 
@@ -78,20 +77,6 @@ class PipelineConfig:
             "Please provide either Genbank files or Fasta and GFF files. If "
             "raw_output_only is selected Genbank or Fasta files are required.")
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for an option whose module is not
-        ported yet, naming its ROADMAP.md entry."""
-        missing = []
-        if self.doench_efficiency_score or self.cfd_score:
-            missing.append("Doench/CFD scoring (scoring)")
-        if self.plot:
-            missing.append("plot (plot and app)")
-        if missing:
-            raise NotImplementedError(
-                "not ported to guidemaker_tpu_torch yet: "
-                + "; ".join(missing)
-                + " (ROADMAP.md, modules still to port)")
-
 
 @dataclass
 class PipelineResult:
@@ -107,7 +92,6 @@ class PipelineResult:
 def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineResult:
     """Run the GuideMaker workflow; optionally write csv.gz outputs."""
     cfg.validate()
-    cfg.check_ported()
     device = resolve_device(cfg.device)
     result = PipelineResult()
     owns_tempdir = False
@@ -226,6 +210,18 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
             anno._format_guide_table(tl)
         prettydf = anno._filterlocus(cfg.attribute_key, cfg.filter_by_attribute)
 
+        # scoring is host work: the control search runs on the card behind it
+        if cfg.doench_efficiency_score:
+            logger.info("Scoring on-target efficiency (Doench et al. 2016)")
+            with stage_timer("doench scoring"):
+                prettydf = get_doench_efficiency_score(
+                    df=prettydf, pam_orientation=cfg.pam_orientation,
+                    num_threads=cfg.threads)
+        if cfg.cfd_score:
+            logger.info("Scoring off-target activity (CFD)")
+            with stage_timer("cfd scoring"):
+                prettydf = cfd_score(df=prettydf)
+
         fd_zero = prettydf["Feature distance"].isin([0]).sum()
         logger.info("Guides within a gene (zero feature distance): %d", fd_zero)
         result.targets = prettydf
@@ -277,6 +273,10 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
                 write_t.join()
             if write_exc:
                 raise write_exc[0]
+
+        if cfg.plot and write_outputs:
+            logger.info("Creating plots")
+            GuideMakerPlot(prettydf=prettydf, outdir=cfg.outdir)
 
         logger.info("GuideMaker completed; results in %s", cfg.outdir)
         logger.info("Guide RNA candidates found: %d", len(prettydf))

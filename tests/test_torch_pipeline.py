@@ -70,7 +70,9 @@ def _read_gz(path):
     ([], "targets.csv.gz"),
     (["--pam_orientation", "5prime", "--knum", "2", "--lsr", "0"],
      "targets.csv.gz"),
-    (["--raw_output_only"], "rawguides.csv.gz")])
+    (["--raw_output_only"], "rawguides.csv.gz"),
+    (["--doench_efficiency_score", "--cfd_score", "--plot"],
+     "targets.csv.gz")])
 def test_cli_matches_jax_run(tmp_path, extra, name, root_logging):
     port_out = tmp_path / "port"
     main(["--genbank", GBK, "--pamseq", "NGG", "--outdir", str(port_out),
@@ -82,10 +84,13 @@ def test_cli_matches_jax_run(tmp_path, extra, name, root_logging):
     jax_run_pipeline(JaxPipelineConfig(
         genbank=[GBK], pamseq="NGG", outdir=str(tmp_path / "jax"),
         pam_orientation=cfg.pam_orientation, knum=cfg.knum, lsr=cfg.lsr,
-        raw_output_only=cfg.raw_output_only, controls=0))
+        raw_output_only=cfg.raw_output_only, controls=0,
+        doench_efficiency_score=cfg.doench_efficiency_score,
+        cfd_score=cfg.cfd_score, plot=cfg.plot))
     got = _read_gz(port_out / name)
     assert got == _read_gz(tmp_path / "jax" / name)
     assert got.count(b"\n") > 500
+    assert sorted(os.listdir(port_out)) == sorted(os.listdir(tmp_path / "jax"))
 
 
 @pytest.mark.parametrize("dist", [2, 3, 4])
@@ -109,21 +114,47 @@ def test_import_leaves_jax_out():
             "    importlib.import_module(m.name)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'guidemaker_tpu' not in sys.modules\n"
-            "assert 'triton' not in sys.modules\n")
+            "assert 'triton' not in sys.modules\n"
+            "assert 'streamlit' not in sys.modules\n"
+            "assert {'guidemaker_tpu_torch.app', 'guidemaker_tpu_torch.plot',\n"
+            "        'guidemaker_tpu_torch.score.doench'} <= set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("option", [
-    {"doench_efficiency_score": True}, {"cfd_score": True}, {"plot": True}])
-def test_unported_options_raise(tmp_path, option):
-    cfg = PipelineConfig(genbank=[GBK], pamseq="NGG", outdir=str(tmp_path),
-                         device="cpu", **{"controls": 0, **option})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(cfg)
-    assert not (tmp_path / "targets.csv.gz").exists()
+@pytest.mark.parametrize("extra", [
+    dict(doench_efficiency_score=True, cfd_score=True, plot=True),
+    dict(cfd_score=True),
+    dict(doench_efficiency_score=True, pam_orientation="5prime"),
+    dict(dtype="leven", cfd_score=True)],
+    ids=["doench-cfd-plot", "cfd", "doench-5prime", "leven-cfd"])
+def test_scored_run_matches_jax_run(tmp_path, extra):
+    """Scoring and plots on C. ruddii: the port's table and charts byte for
+    byte the JAX package's."""
+    base = dict(genbank=[GBK], pamseq="NGG", controls=0, **extra)
+    res = run_pipeline(PipelineConfig(outdir=str(tmp_path / "port"),
+                                      device="cpu", **base))
+    jax_run_pipeline(JaxPipelineConfig(outdir=str(tmp_path / "jax"), **base))
+    got = _read_gz(tmp_path / "port" / "targets.csv.gz")
+    assert got == _read_gz(tmp_path / "jax" / "targets.csv.gz")
+    assert got.count(b"\n") > 500
+    df = res.targets
+    assert ("target_seq30" in df) != bool(extra.get("doench_efficiency_score"))
+    if extra.get("cfd_score"):
+        assert (df["Max CFD"] <= 1.0).all() and (df["Max CFD"] < 1.0).any()
+    if extra.get("pam_orientation") == "5prime":
+        assert (df["Efficiency"] == "Not Available").all()
+    elif extra.get("doench_efficiency_score"):
+        assert df["Efficiency"].dtype == "float32"
+    pages = sorted(p for p in os.listdir(tmp_path / "port")
+                   if p.endswith(".html"))
+    assert pages == (["AP009180.1.html"] if extra.get("plot") else [])
+    for page in pages:
+        with open(tmp_path / "port" / page) as a, \
+                open(tmp_path / "jax" / page) as b:
+            assert a.read() == b.read()
 
 
 def test_cli_device_and_defaults():
@@ -135,6 +166,8 @@ def test_cli_device_and_defaults():
     assert config_from_args(myparser().parse_args(base + ["--cpu"])).device \
         == "cpu"
     assert myparser().prog == "guidemaker-tpu-torch"
+    # the epilog names the port's web app on a line of its own
+    assert f"\nstreamlit run {definitions.WEB_APP}\n" in myparser().format_help()
 
 
 def test_run_without_card_raises(tmp_path):
