@@ -9,12 +9,15 @@ Phases, one line each; any failure exits non-zero:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: the CUDA kernels of guidemaker_tpu_torch/csrc, one nvcc per
-   source, all started together;
+   source, all started together; ptxas's registers and spills, and the
+   count kernel's IMMA (tensor-core) instructions by ``cuobjdump -sass``;
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
    kernels on N-free codes with duplicated rows (4096 x 200,001, odd, L 20
-   and 21), every editdist and k of the main path and its edges;
+   and 21), every editdist and k of the main path and its edges; 3b, the
+   count kernel at its tiling's edges (L 1, 8, 20, 24, 25, 27 and 32; nq 1,
+   15 and 4095; nd 200,003; a query block ending in N; editdist 0-3 and L);
 4. the C. ruddii parity configuration (tests/test_parity_e2e.py) on the
    card, byte for byte against tests/test_data/golden_pretty_cruddii.csv.gz;
 5. P. aeruginosa retention (NGG/5prime/20, all unique guides against all,
@@ -78,7 +81,11 @@ The line before the last is a JSON object describing each kernel (launches
 in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
 for the Myers top-k, phase 10 for the 3-gram count; the largest error
 seen; its time and its plain version's time in ms at the sizes its phase
-prints, and for the 2-bit top-k also at k 3 from phase 11); the last line
+prints, and for the 2-bit top-k also at k 3 from phase 11; its bound at
+the shape of its time, the larger of its operations at the card's peak
+for their type and its bytes at the memory rate, and which of the two
+sets it; ``library_ms`` null, as no single PyTorch call computes a
+thresholded count or a packed-key top-k); the last line
 is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -128,10 +135,36 @@ GOLDEN_DOENCH = np.array([[0.59383124], [0.28157765], [0.5276569]],
                          dtype=np.float32)
 #: rows of the scored table whose CFD lists phase 11 recomputes one by one
 CFD_SAMPLE = 1000
+#: the count kernel's tiling edges (phase 3b): guide lengths at its k32
+#: padding edges, query counts at its 256-query block edges, and a database
+#: ragged against its 128-row tiles
+EDGE_LENGTHS = (1, 8, 20, 24, 25, 27, 32)
+EDGE_NQ = (1, 15, 4095)
+EDGE_ND = 200_003
+#: an H100 SXM's peaks (NVIDIA's data sheet, dense): int8 tensor-core
+#: operations, device-memory bytes, and INT32 operations (64 INT32 lanes a
+#: SM against the 128 float32 lanes of the 67 TFLOP/s float32 peak, in
+#: which an FMA counts 2)
+INT8_OPS_PER_S = 1979e12
+BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+#: integer operations of one Myers step, a (pair, base), with 3-input
+#: logic fused (csrc/leven_topk.cu:myers writes 16)
+MYERS_OPS = 10
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound_ms(ops, rate, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` operations at ``rate`` and ``nbytes`` (each input read once,
+    each output written once) at its memory rate, and which of the two
+    sets it."""
+    t_ops = ops / rate * 1e3
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -153,9 +186,20 @@ class Kernel:
     """What the last-but-one line reports about one kernel."""
 
     def __init__(self, name, source, replaces):
+        # library_ms stays null: no single PyTorch call computes a
+        # thresholded match count or a packed-key top-k
         self.row = {"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": 0, "max_abs_err": 0,
-                    "ms": None, "plain_ms": None}
+                    "ms": None, "plain_ms": None, "bound_ms": None,
+                    "bound_by": None, "library_ms": None}
+
+    def timed(self, ms, plain_ms, ops, rate, nbytes):
+        """Its time and its plain version's, and its bound at the same
+        shape (:func:`bound_ms`)."""
+        bound, by = bound_ms(ops, rate, nbytes)
+        self.row.update(ms=round(ms, 3), plain_ms=round(plain_ms, 3),
+                        bound_ms=round(bound, 4), bound_by=by)
+        return self.row["bound_ms"]
 
     def compare(self, got: torch.Tensor, want: torch.Tensor, what: str):
         torch.cuda.synchronize()
@@ -221,11 +265,41 @@ def phase_kernels(count, topk, dev):
     if not ((d[:, 3:] == -1).all() and (i[:, 3:] == -1).all()
             and (d[:, :3] >= 0).all()):
         raise AssertionError("k > nd: -1 padding beyond nd is wrong")
+    # both bound by the one-hot product, 2 * nq * nd * 4L int8
+    bound = bound_ms(2 * 4096 * 200_000 * 80, INT8_OPS_PER_S,
+                     16 * (4096 + 200_000) + 4 * 4096 * 5)[0]
     say("phase 3 kernels vs plain: exact at nq=4096 nd=200000 L=20,27 "
         "editdist 0,1,2,3,L k 1,2,5,20,128 and k>nd; L=20 times: "
-        f"count {times['count'][0]:.3f} ms (plain {times['count'][1]:.3f} ms)"
-        f", top-k k=5 {times['topk'][0]:.3f} ms "
-        f"(plain {times['topk'][1]:.3f} ms)")
+        f"count {times['count'][0]:.4f} ms (plain {times['count'][1]:.3f} "
+        f"ms), top-k k=5 {times['topk'][0]:.3f} ms "
+        f"(plain {times['topk'][1]:.3f} ms), int8 bound of either "
+        f"{bound:.4f} ms")
+
+
+def phase_count_edges(count, dev):
+    """The count kernel against its plain version at its tiling's edges:
+    k32 padding (EDGE_LENGTHS), query blocks (EDGE_NQ), a database ragged
+    against its tiles (EDGE_ND), a block whose queries end in N, and every
+    editdist edge."""
+    from guidemaker_tpu_torch.knn import stream
+    from guidemaker_tpu_torch.knn.hamming import (hamming_count_plain,
+                                                  pack_codes)
+    rng = np.random.default_rng(97)
+    n_cmp = 0
+    for length in EDGE_LENGTHS:
+        qn, dbn = random_codes(rng, max(EDGE_NQ), EDGE_ND, length)
+        qn[256:512, max(1, length - 9):] = 4
+        q = pack_codes(torch.from_numpy(qn).to(dev))
+        db = pack_codes(torch.from_numpy(dbn).to(dev))
+        for nq in EDGE_NQ:
+            for e in sorted({e for e in (0, 1, 2, 3, length) if e <= length}):
+                count.compare(stream.hamming_count(q[:nq], db, length, e),
+                              hamming_count_plain(q[:nq], db, length, e),
+                              f"count L={length} nq={nq} editdist={e}")
+                n_cmp += 1
+    say(f"phase 3b count kernel vs plain at its tiling edges: exact in "
+        f"{n_cmp} comparisons, L {EDGE_LENGTHS}, nq {EDGE_NQ}, nd {EDGE_ND}, "
+        f"editdist 0,1,2,3,L")
 
 
 def phase_packed_kernels(pcount, ptopk, dev):
@@ -278,10 +352,13 @@ def phase_packed_kernels(pcount, ptopk, dev):
     if not ((d[:, 3:] == -1).all() and (i[:, 3:] == -1).all()
             and (d[:, :3] >= 0).all()):
         raise AssertionError("packed k > nd: -1 padding beyond nd is wrong")
+    bound = bound_ms(2 * 4096 * nd * 80, INT8_OPS_PER_S,
+                     128 * (4096 + (nd + 1) // 2) + 4 * 4096 * 5)[0]
     say("phase 3 packed kernels vs plain (and vs the 2-bit kernels): exact "
         "at nq=4096 nd=200001 L=20,21 editdist 0,1,2,3,L k 1,2,5,20,128 and "
         "k>nd; L=20 ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                      times.items()))
+                                      times.items())
+        + f"; int8 bound of either {bound:.4f} ms")
 
 
 def leven_codes(rng, nq, nd, length):
@@ -347,10 +424,16 @@ def phase_leven_kernels(fcount, ltopk, dev):
                 times["leven top-k"] = cuda_ms(
                     lambda: stream.leven_topk(q, db, 20, 5), 3)
                 times["leven top-k plain"] = plain_s * 1e3
+    f_bound = bound_ms(2 * fq * fd * 64 * 18, INT8_OPS_PER_S,
+                       8 * 18 * (fq + fd) + 4 * fq)[0]
+    l_bound = bound_ms(MYERS_OPS * nq * nd * 20, INT32_OPS_PER_S,
+                       16 * (nq + nd) + 4 * nq * 5)[0]
     say(f"phase 3c Levenshtein kernels vs plain: feature count exact at "
         f"{fq} x {fd} L=20,27 t=3,4 both directions 4 thresholds; leven "
         f"top-k exact at {nq} x {nd} L=20,27,32 k 1,2,5,64,128; L=20 ms: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; bounds: feature count {f_bound:.4f} ms (int8), leven top-k "
+        f"{l_bound:.4f} ms (INT32)")
 
 
 def phase_cruddii(dev):
@@ -417,7 +500,7 @@ def phase_retention(count, pcount, dev, uniq, t_host):
             plain = lambda: pk.packed_count_plain(q, db, n, 20, 2)  # noqa
         else:
             kern = count
-            db = idx._db
+            q = db = idx._db
             run = lambda: stream.hamming_count(db, db, 20, 2)  # noqa: E731
             plain = lambda: hamming_count_plain(db, db, 20, 2)  # noqa: E731
         got = run()
@@ -428,11 +511,15 @@ def phase_retention(count, pcount, dev, uniq, t_host):
         kern.compare(got, want, f"P. aeruginosa all-vs-all {layout} count")
         counts[layout] = got
         ms = cuda_ms(run, 3)
-        kern.row["ms"], kern.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
+        # the one-hot product of the JAX kernel: 2 * n * n * 4L int8
+        bound = kern.timed(ms, plain_ms, 2 * n * n * 80, INT8_OPS_PER_S,
+                           q.numel() * q.element_size()
+                           + db.numel() * db.element_size() + 4 * n)
         say(f"phase 5 P. aeruginosa retention, {layout} layout: {retained} of "
             f"{n} guides retained (expected {PA_RETAINED}); kernel == plain "
             f"at {n} x {n}; kernel {ms:.3f} ms ({n * n / ms / 1e9:.4f} T "
-            f"pairs/s), plain {plain_ms:.3f} ms; pass_distance_filter "
+            f"pairs/s, {bound / ms:.3f} of its {bound:.2f} ms int8 bound), "
+            f"plain {plain_ms:.3f} ms; pass_distance_filter "
             f"{t_filter:.3f} s")
         del idx, db, got, want
     pcount.compare(counts["packed"], counts["2-bit"],
@@ -587,8 +674,10 @@ def phase_design(count, topk, dev):
         raise AssertionError(f"a 2-bit kernel was not launched by the design "
                              f"run: launches {launches}")
     need, ms, plain_ms = check_neighbor_lists(topk, res, cfg.knum, dev)
-    topk.row["ms"], topk.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
     idx = res.processor.index
+    nq, nd = len(need), len(idx)
+    topk.timed(ms, plain_ms, 2 * nq * nd * 4 * idx.length, INT8_OPS_PER_S,
+               16 * (nq + nd) + 4 * nq * cfg.knum)
     controls = check_controls(res, out, dev)
     # the same seed searches the same candidates again
     t0 = time.time()
@@ -644,7 +733,9 @@ def phase_design_packed(pcount, ptopk, dev, codes_out):
     ptopk.compare(got, want, "P. aeruginosa phase-2 packed top-k")
     ms = cuda_ms(lambda: stream.packed_topk(q, db, n, idx.length, cfg.knum),
                  3)
-    ptopk.row["ms"], ptopk.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
+    ptopk.timed(ms, plain_ms, 2 * len(need) * n * 4 * idx.length,
+                INT8_OPS_PER_S, q.numel() + db.numel() + 4 * len(need)
+                * cfg.knum)
     say(f"phase 7 P. aeruginosa design run (--controls 1000 --seed {SEED}, "
         f"GUIDEMAKER_TPU_PACKED=1) on {dev}: targets.csv.gz content == "
         f"phase 6's ({len(tables[1])} bytes), {wall:.2f} s wall, controls "
@@ -752,6 +843,8 @@ def phase_leven_design(ltopk, dev, hamming_out, hamming_controls):
     if not res.controls.equals(hamming_controls):
         raise AssertionError("leven design run controls != phase 6's frame")
     n, nq = len(idx), len(need)
+    all_bound = bound_ms(MYERS_OPS * nq * n * idx.length, INT32_OPS_PER_S,
+                         16 * (nq + n) + 4 * nq * cfg.knum)[0]
     say(f"phase 9 P. aeruginosa design run (--dtype leven --controls 1000 "
         f"--seed {SEED}, 2-bit layout) on {dev}: {len(df)} rows (expected "
         f"{PA_TABLE_ROWS}) == phase 6's table but for dtype and the neighbor "
@@ -761,9 +854,12 @@ def phase_leven_design(ltopk, dev, hamming_out, hamming_controls):
         f"{launches[4]}, leven top-k {launches[5]}; neighbor lists == plain "
         f"DP top-k for {len(sample)} sampled guides x {n} (kernel {ms:.3f} "
         f"ms, plain {plain_ms:.3f} ms); all {nq} guides x {n} in "
-        f"{ms_all:.3f} ms ({nq * n / ms_all / 1e9:.4f} T pairs/s); "
-        f"{controls}; controls == phase 6's frame")
-    ltopk.row["ms"], ltopk.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
+        f"{ms_all:.3f} ms ({nq * n / ms_all / 1e9:.4f} T pairs/s, INT32 "
+        f"bound {all_bound:.3f} ms); {controls}; controls == phase 6's "
+        f"frame")
+    ltopk.timed(ms, plain_ms, MYERS_OPS * len(sample) * n * idx.length,
+                INT32_OPS_PER_S, 16 * (len(sample) + n)
+                + 4 * len(sample) * cfg.knum)
 
 
 def phase_leven_tiers(fcount, dev, uniq):
@@ -809,8 +905,10 @@ def phase_leven_tiers(fcount, dev, uniq):
     plain_ms = (time.time() - t0) * 1e3
     fcount.compare(got, want, "P. aeruginosa tier-1 3-gram count")
     ms = cuda_ms(lambda: stream.feature_count(q, db, 18, 8), 3)
-    fcount.row["ms"], fcount.row["plain_ms"] = round(ms, 3), round(plain_ms, 3)
     n = TIER_GUIDES
+    # the JAX kernel's int8 product: 64 lanes a gram position, 18 positions
+    fcount.timed(ms, plain_ms, 2 * n * n * 64 * 18, INT8_OPS_PER_S,
+                 8 * (q.numel() + db.numel()) + 4 * n)
     say(f"phase 10 Levenshtein dist 4 on the first {n} P. aeruginosa guides, "
         f"all against all, on {dev}: {int(mask.sum())} retained == the k=2 "
         f"rule ({t_rule:.3f} s), pass_distance_filter {wall:.3f} s; "
@@ -944,6 +1042,21 @@ def phase_app(dev):
         f"page(s); 10 controls each")
 
 
+def count_kernel_sass(lib: str):
+    """(IMMA, POPC) instructions in the SASS of the 2-bit count kernel of
+    the built library, by ``cuobjdump -sass`` from nvcc's toolkit."""
+    from guidemaker_tpu_torch.knn import build
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        # 12count_kernel: the mangled name, not packed_ or feature_count
+        if "12count_kernel" in part.split(None, 1)[0]:
+            ops = [w.split(".")[0] for w in part.split()]
+            return ops.count("IMMA"), ops.count("POPC")
+    raise AssertionError("the library's SASS holds no count_kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -970,6 +1083,11 @@ def main() -> int:
         f"{time.time() - t0:.2f} s")
     for ln in ptxas:
         say("  " + ln)
+    imma, popc = count_kernel_sass(lib)
+    if imma == 0 or popc:
+        raise AssertionError(f"count kernel SASS: {imma} IMMA, {popc} POPC; "
+                             f"it must run on the tensor cores")
+    say(f"  count kernel SASS (cuobjdump): {imma} IMMA, {popc} POPC")
     count = Kernel("hamming_count",
                    "guidemaker_tpu_torch/csrc/hamming_count.cu",
                    "guidemaker_tpu/knn/pallas_stream.py:164")
@@ -989,6 +1107,7 @@ def main() -> int:
                    "guidemaker_tpu/knn/leven.py:59, "
                    "guidemaker_tpu/knn/leven.py:126 (XLA, not Pallas)")
     phase_kernels(count, topk, dev)
+    phase_count_edges(count, dev)
     phase_packed_kernels(pcount, ptopk, dev)
     phase_leven_kernels(fcount, ltopk, dev)
     phase_cruddii(dev)

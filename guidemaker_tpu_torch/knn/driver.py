@@ -51,24 +51,47 @@ def use_packed(length: int) -> bool:
             and bool(os.environ.get("GUIDEMAKER_TPU_PACKED")))
 
 
+def _device_for(device, backend):
+    """The index's device from the port's ``device`` and a JAX ``backend``
+    name (mapped through ``_SAVED_BACKENDS``); the card when neither is
+    given.  Raises ``ValueError`` on an unknown backend or when the two
+    name different device types."""
+    if backend is None:
+        return resolve_device("cuda" if device is None else device)
+    if backend not in _SAVED_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: "
+                         f"{sorted(_SAVED_BACKENDS)}")
+    mapped = _SAVED_BACKENDS[backend]
+    if device is None:
+        return resolve_device(mapped)
+    if torch.device(device).type != mapped:
+        raise ValueError(f"backend {backend!r} runs on {mapped}, but device "
+                         f"{device!r} was given")
+    return resolve_device(device)
+
+
 class KnnIndex:
     """An exact nearest-neighbor index over equal-length guide sequences.
 
-    ``metric`` is ``"hamming"`` or ``"leven"`` (Levenshtein).  ``packed``
-    selects the packed-pair layout of the Hamming calls (``None``: read
-    ``GUIDEMAKER_TPU_PACKED``, as the JAX package does); ``True`` with
-    guides longer than 21 bases raises.
+    ``metric`` is ``"hamming"`` or ``"leven"`` (Levenshtein).  ``device``
+    defaults to ``"cuda"``; ``backend`` takes the JAX package's backend
+    names instead (``pallas``/``sharded`` -> cuda, ``xla``/``native`` ->
+    cpu) and must agree with ``device`` when both are given.
+    ``num_threads`` (the JAX native engine's) is accepted and ignored.
+    ``packed`` selects the packed-pair layout of the Hamming calls
+    (``None``: read ``GUIDEMAKER_TPU_PACKED``, as the JAX package does);
+    ``True`` with guides longer than 21 bases raises.
     """
 
-    def __init__(self, seqs, metric: str = "hamming", device="cuda",
-                 packed=None):
+    def __init__(self, seqs, metric: str = "hamming", device=None,
+                 packed=None, backend: str = None, num_threads: int = 0):
         if len(seqs) == 0:
             raise ValueError("cannot build an index over zero sequences")
         if metric not in ("hamming", "leven"):
             raise ValueError(f"metric must be 'hamming' or 'leven', got "
                              f"{metric!r}")
         self.metric = metric
-        self.device = resolve_device(device)
+        self.device = _device_for(device, backend)
         if isinstance(seqs, (list, tuple)):
             self._seqs_list: List[str] = list(seqs)
             self._seq_arr = None     # Arrow form built lazily on demand
@@ -352,19 +375,26 @@ class KnnIndex:
                             backend=np.str_(self.device.type))
 
     @classmethod
-    def load(cls, path: str, device=None) -> "KnnIndex":
-        """Load an index saved by either package.  Without ``device``, a
-        JAX backend name maps to the port's device: ``pallas`` and
-        ``sharded`` (TPU kernels) to ``cuda``, ``xla`` and ``native``
-        (portable and CPU engines) to ``cpu``."""
+    def load(cls, path: str, device=None, backend: str = None) -> "KnnIndex":
+        """Load an index saved by either package.  Without ``device`` or
+        ``backend``, the saved backend name maps to the port's device:
+        ``pallas`` and ``sharded`` (TPU kernels) to ``cuda``, ``xla`` and
+        ``native`` (portable and CPU engines) to ``cpu``.  ``backend``
+        maps the same way and must agree with ``device``."""
         z = np.load(path)
-        if device is None:
-            saved = str(z["backend"])
-            if saved not in _SAVED_BACKENDS:
-                raise ValueError(f"unknown saved backend {saved!r}")
-            device = _SAVED_BACKENDS[saved]
+        if device is None and backend is None:
+            backend = str(z["backend"])
         return cls(dna.decode_rows(z["codes"]), metric=str(z["metric"]),
-                   device=device)
+                   device=device, backend=backend)
+
+
+def knn_search(db_seqs: Sequence[str], q_seqs: Sequence[str], k: int,
+               metric: str = "hamming",
+               device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """One-shot exact k-NN: build an index over ``db_seqs`` on ``device``
+    and query it; (dists, idx), each (nq, k) int32, as
+    :meth:`KnnIndex.query`."""
+    return KnnIndex(db_seqs, metric, device=device).query(q_seqs, k)
 
 
 def _host_lists(keys: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -106,7 +106,7 @@ def hamming_count(q: torch.Tensor, db: torch.Tensor, length: int,
     with torch.cuda.device(q.device):
         err = lib.gm_hamming_count(
             q.data_ptr(), nq, db.data_ptr(), nd, length - editdist,
-            _n_splits(nq, nd, 512, q.device), out.data_ptr(),
+            _n_splits(nq, nd, 256, q.device), out.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"hamming_count kernel launch failed: CUDA error "

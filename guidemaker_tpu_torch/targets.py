@@ -428,6 +428,14 @@ class TargetProcessor:
             "a search pool of %d" % (minimum_hmdist_target, n * search_mult))
 
     # ------------------------------------------------------------------
+    def prewarm_controls(self, configpath: str, length: int, n: int) -> None:
+        """A no-op, kept for the JAX package's API.  There it loads the
+        control search's compiled programs ahead of use; here the kernels
+        run eagerly and are built once per process, at their first launch,
+        so there is nothing to warm.  Returns None."""
+        return None
+
+    # ------------------------------------------------------------------
     def launch_control_search(self, fastapath: str, configpath: str,
                               length: int = 20, n: int = 10,
                               num_threads: int = 2,

@@ -89,6 +89,69 @@ def test_count_matches_jax_kernel(nq, nd, L, editdist):
         assert not got.any()
 
 
+#: guide lengths at the count kernel's k-padding edges: one k32 step with 4
+#: useful bytes, exactly 1 and 3 steps, 3 steps plus 4 bytes padded to 4
+COUNT_EDGE_LENGTHS = [1, 8, 20, 24, 25, 27, 32]
+
+
+def _edge_editdists(length):
+    return sorted({e for e in (0, 1, 2, 3, length) if e <= length})
+
+
+def _count_model(q, db, length, editdist):
+    """csrc/hamming_count.cu's arithmetic in numpy: per block of 256
+    queries, one-hot rows of K = 32 * ceil(nb / 8) bytes (nb: the last valid
+    base of any query of the block, plus 1; base i is the little-endian
+    word ``valid << 8 * code`` at bytes 4i..4i+3), database tiles of 128
+    rows zero-padded at the ragged edge, an int32 product started at
+    -(thresh + 1), and a count of the sums >= 0."""
+    thresh = length - editdist
+
+    def onehot(codes, k_bytes):
+        rows = np.zeros((codes.shape[0], k_bytes), np.int8)
+        for i in range(min(codes.shape[1], k_bytes // 4)):
+            valid = codes[:, i] < 4
+            rows[np.flatnonzero(valid), 4 * i + codes[valid, i]] = 1
+        return rows
+
+    out = np.zeros(q.shape[0], np.int32)
+    for b0 in range(0, q.shape[0], 256):
+        block = q[b0:b0 + 256]
+        valid = np.flatnonzero((block < 4).any(0))
+        steps = -(-(valid[-1] + 1) // 8) if valid.size else 0
+        if steps == 0:
+            continue
+        a = onehot(block, 32 * steps).astype(np.int32)
+        for t0 in range(0, db.shape[0], 128):
+            tile = np.zeros((128, length), np.uint8) + 4
+            part = db[t0:t0 + 128]
+            tile[:part.shape[0]] = part
+            acc = a @ onehot(tile, 32 * steps).astype(np.int32).T \
+                - (thresh + 1)
+            out[b0:b0 + 256] += (acc >= 0).sum(1, dtype=np.int32)
+    return out
+
+
+@pytest.mark.parametrize("length", COUNT_EDGE_LENGTHS)
+def test_count_kernel_model_matches_plain(length):
+    """The zero-padded one-hot layout, the block's k32 steps and the
+    biased > thresh count that the tensor-core kernel relies on equal
+    ``hamming_count_plain``, with N bases, duplicated rows, an all-N query
+    and a block whose queries all end in N."""
+    from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
+    rng = np.random.default_rng(100 + length)
+    q, db = _codes(rng, 600, 300, length)
+    q[256:512, max(1, length - 9):] = dna.INVALID
+    for editdist in _edge_editdists(length):
+        want = hamming_count_plain(pack_codes(torch.from_numpy(q)),
+                                   pack_codes(torch.from_numpy(db)), length,
+                                   editdist).numpy()
+        np.testing.assert_array_equal(_count_model(q, db, length, editdist),
+                                      want, err_msg=f"editdist {editdist}")
+        if editdist == 0:
+            assert not want.any()
+
+
 def test_pack_codes_full_width_and_n_rule():
     """32 bases use all 64 bits of the code word; N matches nothing, not
     even another N."""
@@ -264,6 +327,25 @@ def test_kernels_match_plain_on_card(cuda_device, L):
     for k in (1, 2, 5, 20, 128):
         assert torch.equal(stream.hamming_topk(q, db, L, k),
                            hamming_topk_plain(q, db, L, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", COUNT_EDGE_LENGTHS)
+def test_count_kernel_edges_on_card(cuda_device, L):
+    """The tensor-core count at its tiling's edges: k-padding (L), query
+    blocks (nq 1, 15, 4095), a database ragged against its 128-row tiles
+    (nd 200,003), a block whose queries end in N, every editdist edge."""
+    from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
+    rng = np.random.default_rng(L)
+    qn, dbn = _codes(rng, 4095, 200_003, L)
+    qn[256:512, max(1, L - 9):] = dna.INVALID
+    q = pack_codes(torch.from_numpy(qn).to(cuda_device))
+    db = pack_codes(torch.from_numpy(dbn).to(cuda_device))
+    for nq in (1, 15, 4095):
+        for editdist in _edge_editdists(L):
+            assert torch.equal(
+                stream.hamming_count(q[:nq], db, L, editdist),
+                hamming_count_plain(q[:nq], db, L, editdist)), (nq, editdist)
 
 
 @pytest.mark.cuda
