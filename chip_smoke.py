@@ -9,15 +9,19 @@ Phases, one line each; any failure exits non-zero:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: the CUDA kernels of guidemaker_tpu_torch/csrc, one nvcc per
-   source, all started together; ptxas's registers and spills, and the
-   count kernel's IMMA (tensor-core) instructions by ``cuobjdump -sass``;
+   source, all started together; ptxas's registers and spills for every
+   kernel (each kcap of the top-k), and by ``cuobjdump -sass`` the IMMA
+   (tensor-core) and POPC instructions of the 2-bit count kernel and of
+   every kcap of the 2-bit top-k kernel: each must have IMMA and no POPC,
+   and neither may spill on the main path (top-k kcap <= 8);
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
    kernels on N-free codes with duplicated rows (4096 x 200,001, odd, L 20
    and 21), every editdist and k of the main path and its edges; 3b, the
-   count kernel at its tiling's edges (L 1, 8, 20, 24, 25, 27 and 32; nq 1,
-   15 and 4095; nd 200,003; a query block ending in N; editdist 0-3 and L);
+   2-bit count and top-k kernels at their tiling's edges (L 1, 8, 20, 24,
+   25, 27 and 32; nq 1, 15 and 4095; nd 200,003; a query block ending in
+   N and an all-N block; editdist 0-3 and L; k 1, 2, 3, 5, 20 and 128);
 4. the C. ruddii parity configuration (tests/test_parity_e2e.py) on the
    card, byte for byte against tests/test_data/golden_pretty_cruddii.csv.gz;
 5. P. aeruginosa retention (NGG/5prime/20, all unique guides against all,
@@ -30,7 +34,10 @@ Phases, one line each; any failure exits non-zero:
    plain top-k on the card, its 1000 controls (each at Hamming distance
    >= 7, equal to the plain k=1 distance, named Cont-<md5>, the same frame
    again from a second search with the same seed), and the launch count of
-   both 2-bit kernels (> 0);
+   both 2-bit kernels (> 0); then the top-k's time on the run's phase-2
+   queries at kcap 1, 2, 4, 8, 16 and 32, each with its bound (each list
+   the first columns of the kcap-32 list, whose first knum columns are the
+   plain top-k's);
 7. the same run with GUIDEMAKER_TPU_PACKED=1: the same targets table, the
    same control invariants, both packed kernels launched and neither 2-bit
    kernel;
@@ -81,7 +88,8 @@ The line before the last is a JSON object describing each kernel (launches
 in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
 for the Myers top-k, phase 10 for the 3-gram count; the largest error
 seen; its time and its plain version's time in ms at the sizes its phase
-prints, and for the 2-bit top-k also at k 3 from phase 11; its bound at
+prints, and for the 2-bit top-k also at k 3 from phase 11 and at each
+kcap of phase 6's sweep; its bound at
 the shape of its time, the larger of its operations at the card's peak
 for their type and its bytes at the memory rate, and which of the two
 sets it; ``library_ms`` null, as no single PyTorch call computes a
@@ -95,6 +103,7 @@ import io
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -135,12 +144,16 @@ GOLDEN_DOENCH = np.array([[0.59383124], [0.28157765], [0.5276569]],
                          dtype=np.float32)
 #: rows of the scored table whose CFD lists phase 11 recomputes one by one
 CFD_SAMPLE = 1000
-#: the count kernel's tiling edges (phase 3b): guide lengths at its k32
+#: the 2-bit kernels' tiling edges (phase 3b): guide lengths at its k32
 #: padding edges, query counts at its 256-query block edges, and a database
 #: ragged against its 128-row tiles
 EDGE_LENGTHS = (1, 8, 20, 24, 25, 27, 32)
 EDGE_NQ = (1, 15, 4095)
 EDGE_ND = 200_003
+#: the top-k's list edges (phase 3b): kcap 1, 2, 4, 8, 32 and 128
+EDGE_KS = (1, 2, 3, 5, 20, 128)
+#: the kcaps of phase 6's top-k sweep
+SWEEP_KCAPS = (1, 2, 4, 8, 16, 32)
 #: an H100 SXM's peaks (NVIDIA's data sheet, dense): int8 tensor-core
 #: operations, device-memory bytes, and INT32 operations (64 INT32 lanes a
 #: SM against the 128 float32 lanes of the 67 TFLOP/s float32 peak, in
@@ -254,6 +267,8 @@ def phase_kernels(count, topk, dev):
             times["topk"] = (
                 cuda_ms(lambda: stream.hamming_topk(q, db, 20, 5), 5),
                 cuda_ms(lambda: hamming_topk_plain(q, db, 20, 5), 5))
+            times["splits"] = topk_ms_by_splits(
+                topk, q, db, 20, 5, hamming_topk_plain(q, db, 20, 5))
     # k > nd on a tiny database: k_eff = nd, and the index pads with -1
     qn, dbn = random_codes(rng, 64, 3, 20)
     q = pack_codes(torch.from_numpy(qn).to(dev))
@@ -273,22 +288,45 @@ def phase_kernels(count, topk, dev):
         f"count {times['count'][0]:.4f} ms (plain {times['count'][1]:.3f} "
         f"ms), top-k k=5 {times['topk'][0]:.3f} ms "
         f"(plain {times['topk'][1]:.3f} ms), int8 bound of either "
-        f"{bound:.4f} ms")
+        f"{bound:.4f} ms; top-k k=5 by database splits (the wrapper plans "
+        f"the first): " + ", ".join(f"{n} {t:.3f} ms" for n, t in
+                                   times["splits"].items()))
 
 
-def phase_count_edges(count, dev):
-    """The count kernel against its plain version at its tiling's edges:
-    k32 padding (EDGE_LENGTHS), query blocks (EDGE_NQ), a database ragged
-    against its tiles (EDGE_ND), a block whose queries end in N, and every
-    editdist edge."""
+def topk_ms_by_splits(topk, q, db, length, k, want):
+    """The top-k's ms at the wrapper's split plan and at a quarter and a
+    sixteenth of it, each result equal to the plain top-k ``want``."""
+    from guidemaker_tpu_torch.knn import stream
+    real = stream._n_splits
+    plan = real(q.shape[0], db.shape[0], 256, q.device)
+    out = {}
+    try:
+        for n in dict.fromkeys((plan, -(-plan // 4), -(-plan // 16))):
+            stream._n_splits = lambda *_, n=n: n
+            topk.compare(stream.hamming_topk(q, db, length, k), want,
+                         f"top-k k={k} at {n} database splits")
+            out[n] = cuda_ms(lambda: stream.hamming_topk(q, db, length, k), 5)
+    finally:
+        stream._n_splits = real
+    return out
+
+
+def phase_edges(count, topk, dev):
+    """The 2-bit count and top-k kernels against their plain versions at
+    their tiling's edges: k32 padding (EDGE_LENGTHS), query blocks
+    (EDGE_NQ), a database ragged against its tiles (EDGE_ND), a block whose
+    queries end in N, an all-N block, every editdist edge and every list
+    edge (EDGE_KS)."""
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.hamming import (hamming_count_plain,
+                                                  hamming_topk_plain,
                                                   pack_codes)
     rng = np.random.default_rng(97)
-    n_cmp = 0
+    n_count = n_topk = 0
     for length in EDGE_LENGTHS:
         qn, dbn = random_codes(rng, max(EDGE_NQ), EDGE_ND, length)
         qn[256:512, max(1, length - 9):] = 4
+        qn[512:768] = 4
         q = pack_codes(torch.from_numpy(qn).to(dev))
         db = pack_codes(torch.from_numpy(dbn).to(dev))
         for nq in EDGE_NQ:
@@ -296,10 +334,18 @@ def phase_count_edges(count, dev):
                 count.compare(stream.hamming_count(q[:nq], db, length, e),
                               hamming_count_plain(q[:nq], db, length, e),
                               f"count L={length} nq={nq} editdist={e}")
-                n_cmp += 1
+                n_count += 1
+            for k in EDGE_KS:
+                topk.compare(stream.hamming_topk(q[:nq], db, length, k),
+                             hamming_topk_plain(q[:nq], db, length, k),
+                             f"top-k L={length} nq={nq} k={k}")
+                n_topk += 1
     say(f"phase 3b count kernel vs plain at its tiling edges: exact in "
-        f"{n_cmp} comparisons, L {EDGE_LENGTHS}, nq {EDGE_NQ}, nd {EDGE_ND}, "
-        f"editdist 0,1,2,3,L")
+        f"{n_count} comparisons, L {EDGE_LENGTHS}, nq {EDGE_NQ}, nd "
+        f"{EDGE_ND}, editdist 0,1,2,3,L")
+    say(f"phase 3b top-k kernel vs plain at its tiling edges: exact in "
+        f"{n_topk} comparisons, L {EDGE_LENGTHS}, nq {EDGE_NQ}, nd "
+        f"{EDGE_ND}, k {EDGE_KS}, an all-N block and a block ending in N")
 
 
 def phase_packed_kernels(pcount, ptopk, dev):
@@ -629,8 +675,9 @@ def stage_seconds(lines, name):
 
 def check_neighbor_lists(topk, res, k, dev):
     """The design table's neighbor lists against the plain top-k at ``k``
-    over all guides, on the card; returns the query count and the
-    kernel's and the plain version's ms."""
+    over all guides, on the card; returns the queries (as guides and as
+    packed rows), the plain top-k, and the kernel's and the plain
+    version's ms."""
     import pandas as pd
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.hamming import (hamming_topk_plain,
@@ -655,7 +702,29 @@ def check_neighbor_lists(topk, res, k, dev):
         if not (df[col].astype(str) == exp).all():
             raise AssertionError(f"design table column {col!r} differs from "
                                  f"the plain top-k at k {k}")
-    return need, ms, plain_ms
+    return need, q, want, ms, plain_ms
+
+
+def kcap_sweep(topk, q, db, length, want):
+    """The top-k's time on the queries ``q`` at each kcap of SWEEP_KCAPS,
+    with its bound; each list must be the first columns of the largest,
+    and that one's first columns the plain top-k ``want``."""
+    from guidemaker_tpu_torch.knn import stream
+    lists = {k: stream.hamming_topk(q, db, length, k) for k in SWEEP_KCAPS}
+    top = lists[max(SWEEP_KCAPS)]
+    for k, got in lists.items():
+        topk.compare(got, top[:, :k], f"phase-2 top-k at k {k} against the "
+                     f"first {k} columns at k {max(SWEEP_KCAPS)}")
+    topk.compare(top[:, :want.shape[1]], want,
+                 f"phase-2 top-k at k {max(SWEEP_KCAPS)}, first columns")
+    nq, nd = q.shape[0], db.shape[0]
+    rows = []
+    for k in SWEEP_KCAPS:
+        ms = cuda_ms(lambda: stream.hamming_topk(q, db, length, k), 3)
+        bound = bound_ms(2 * nq * nd * 4 * length, INT8_OPS_PER_S,
+                         16 * (nq + nd) + 4 * nq * k)[0]
+        rows.append((k, ms, bound))
+    return rows
 
 
 def phase_design(count, topk, dev):
@@ -673,11 +742,17 @@ def phase_design(count, topk, dev):
     if min(launches[:2]) == 0:
         raise AssertionError(f"a 2-bit kernel was not launched by the design "
                              f"run: launches {launches}")
-    need, ms, plain_ms = check_neighbor_lists(topk, res, cfg.knum, dev)
+    need, q, want, ms, plain_ms = check_neighbor_lists(topk, res, cfg.knum,
+                                                      dev)
     idx = res.processor.index
     nq, nd = len(need), len(idx)
     topk.timed(ms, plain_ms, 2 * nq * nd * 4 * idx.length, INT8_OPS_PER_S,
                16 * (nq + nd) + 4 * nq * cfg.knum)
+    sweep = kcap_sweep(topk, q, idx._db, idx.length, want)
+    topk.row["ms_by_kcap"] = {str(k): round(t, 3) for k, t, _ in sweep}
+    say(f"phase 6 top-k by kcap on the {nq} phase-2 queries x {nd} guides: "
+        + ", ".join(f"kcap {k} {t:.3f} ms (bound {b:.3f} ms, share "
+                    f"{b / t:.3f})" for k, t, b in sweep))
     controls = check_controls(res, out, dev)
     # the same seed searches the same candidates again
     t0 = time.time()
@@ -963,7 +1038,7 @@ def phase_scored_design(topk, dev, hamming_controls, hamming_table):
     if not df[shared].reset_index(drop=True).equals(ref):
         raise AssertionError("scored table differs from phase 6's outside "
                              "the neighbor lists")
-    need, ms, plain_ms = check_neighbor_lists(topk, res, 3, dev)
+    need, _, _, ms, plain_ms = check_neighbor_lists(topk, res, 3, dev)
     topk.row["ms_k3"], topk.row["plain_ms_k3"] = (round(ms, 3),
                                                   round(plain_ms, 3))
     controls = check_controls(res, out, dev)
@@ -1042,19 +1117,51 @@ def phase_app(dev):
         f"page(s); 10 controls each")
 
 
-def count_kernel_sass(lib: str):
-    """(IMMA, POPC) instructions in the SASS of the 2-bit count kernel of
-    the built library, by ``cuobjdump -sass`` from nvcc's toolkit."""
+def kernel_name(mangled: str) -> str:
+    """``topk_kernel<8>`` from a mangled kernel name of the library: the
+    last name of its nested name, with its first template argument."""
+    pos, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + len(m.group())
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+    arg = re.match(r"ILi(\d+)E", mangled[pos:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def ptxas_report(log: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``-Xptxas -v`` report of the build."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = [0, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in out:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
+def kernel_sass(lib: str):
+    """{kernel: (IMMA, POPC)} for the 2-bit count kernel and each kcap of
+    the 2-bit top-k kernel, from the SASS of the built library by
+    ``cuobjdump -sass`` from nvcc's toolkit."""
     from guidemaker_tpu_torch.knn import build
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    out = {}
     for part in sass.split("Function : ")[1:]:
-        # 12count_kernel: the mangled name, not packed_ or feature_count
-        if "12count_kernel" in part.split(None, 1)[0]:
+        fn = kernel_name(part.split(None, 1)[0])
+        if fn == "count_kernel" or fn.startswith("topk_kernel<"):
             ops = [w.split(".")[0] for w in part.split()]
-            return ops.count("IMMA"), ops.count("POPC")
-    raise AssertionError("the library's SASS holds no count_kernel")
+            out[fn] = (ops.count("IMMA"), ops.count("POPC"))
+    return out
 
 
 def main() -> int:
@@ -1077,17 +1184,26 @@ def main() -> int:
     lib = build.build()
     build.library()
     with open(lib[:-3] + ".log") as fh:
-        ptxas = [ln.strip() for ln in fh if "registers" in ln
-                 or "spill" in ln]
+        ptxas = ptxas_report(fh.read())
     say(f"phase 2 build: {os.path.relpath(lib, ROOT)} in "
         f"{time.time() - t0:.2f} s")
-    for ln in ptxas:
-        say("  " + ln)
-    imma, popc = count_kernel_sass(lib)
-    if imma == 0 or popc:
-        raise AssertionError(f"count kernel SASS: {imma} IMMA, {popc} POPC; "
-                             f"it must run on the tensor cores")
-    say(f"  count kernel SASS (cuobjdump): {imma} IMMA, {popc} POPC")
+    for fn, (regs, st, ld) in sorted(ptxas.items()):
+        say(f"  ptxas {fn}: {regs} registers, spill stores {st} B, spill "
+            f"loads {ld} B")
+    sass = kernel_sass(lib)
+    want = ["count_kernel"] + [f"topk_kernel<{k}>" for k in
+                               (1, 2, 4, 8, 16, 32, 64, 128)]
+    for fn in want:
+        imma, popc = sass.get(fn, (0, 0))
+        if imma == 0 or popc:
+            raise AssertionError(f"{fn} SASS: {imma} IMMA, {popc} POPC; it "
+                                 f"must run on the tensor cores")
+    for fn in want[:5]:  # the count and the main path's kcaps 1, 2, 4, 8
+        if fn not in ptxas or ptxas[fn][1] or ptxas[fn][2]:
+            raise AssertionError(f"{fn}: ptxas reports spills or nothing: "
+                                 f"{ptxas.get(fn)}")
+    say("  SASS (cuobjdump): " + ", ".join(
+        f"{fn} {sass[fn][0]} IMMA {sass[fn][1]} POPC" for fn in want))
     count = Kernel("hamming_count",
                    "guidemaker_tpu_torch/csrc/hamming_count.cu",
                    "guidemaker_tpu/knn/pallas_stream.py:164")
@@ -1107,7 +1223,7 @@ def main() -> int:
                    "guidemaker_tpu/knn/leven.py:59, "
                    "guidemaker_tpu/knn/leven.py:126 (XLA, not Pallas)")
     phase_kernels(count, topk, dev)
-    phase_count_edges(count, dev)
+    phase_edges(count, topk, dev)
     phase_packed_kernels(pcount, ptopk, dev)
     phase_leven_kernels(fcount, ltopk, dev)
     phase_cruddii(dev)

@@ -23,7 +23,8 @@ from ..definitions import BUILD_DIR, ROOT_DIR
 CSRC_DIR = os.path.join(ROOT_DIR, "csrc")
 SOURCES = ("hamming_count.cu", "hamming_topk.cu", "packed_count.cu",
            "packed_topk.cu", "feature_count.cu", "leven_topk.cu")
-HEADERS = ("hamming_common.cuh", "packed_common.cuh", "topk_common.cuh")
+HEADERS = ("hamming_common.cuh", "mma_common.cuh", "packed_common.cuh",
+           "topk_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -98,6 +98,32 @@ def _edge_editdists(length):
     return sorted({e for e in (0, 1, 2, 3, length) if e <= length})
 
 
+def _onehot_rows(codes, k_bytes):
+    """(n, k_bytes) int32 one-hot rows: base i is the little-endian word
+    ``valid << 8 * code`` at bytes 4i..4i+3; N and bases past k_bytes / 4
+    are zeros."""
+    rows = np.zeros((codes.shape[0], k_bytes), np.int32)
+    for i in range(min(codes.shape[1], k_bytes // 4)):
+        valid = codes[:, i] < 4
+        rows[np.flatnonzero(valid), 4 * i + codes[valid, i]] = 1
+    return rows
+
+
+def _block_steps(block):
+    """k32 steps of a block of queries: enough for its last valid base."""
+    valid = np.flatnonzero((block < 4).any(0))
+    return -(-(valid[-1] + 1) // 8) if valid.size else 0
+
+
+def _db_tile(db, t0, hi, steps):
+    """One-hot rows of the 128-row database tile at t0; rows at or past hi
+    decode to zeros."""
+    tile = np.full((128, db.shape[1]), dna.INVALID, np.uint8)
+    part = db[t0:min(t0 + 128, hi)]
+    tile[:part.shape[0]] = part
+    return _onehot_rows(tile, 32 * steps)
+
+
 def _count_model(q, db, length, editdist):
     """csrc/hamming_count.cu's arithmetic in numpy: per block of 256
     queries, one-hot rows of K = 32 * ceil(nb / 8) bytes (nb: the last valid
@@ -106,28 +132,15 @@ def _count_model(q, db, length, editdist):
     rows zero-padded at the ragged edge, an int32 product started at
     -(thresh + 1), and a count of the sums >= 0."""
     thresh = length - editdist
-
-    def onehot(codes, k_bytes):
-        rows = np.zeros((codes.shape[0], k_bytes), np.int8)
-        for i in range(min(codes.shape[1], k_bytes // 4)):
-            valid = codes[:, i] < 4
-            rows[np.flatnonzero(valid), 4 * i + codes[valid, i]] = 1
-        return rows
-
     out = np.zeros(q.shape[0], np.int32)
     for b0 in range(0, q.shape[0], 256):
         block = q[b0:b0 + 256]
-        valid = np.flatnonzero((block < 4).any(0))
-        steps = -(-(valid[-1] + 1) // 8) if valid.size else 0
+        steps = _block_steps(block)
         if steps == 0:
             continue
-        a = onehot(block, 32 * steps).astype(np.int32)
+        a = _onehot_rows(block, 32 * steps)
         for t0 in range(0, db.shape[0], 128):
-            tile = np.zeros((128, length), np.uint8) + 4
-            part = db[t0:t0 + 128]
-            tile[:part.shape[0]] = part
-            acc = a @ onehot(tile, 32 * steps).astype(np.int32).T \
-                - (thresh + 1)
+            acc = a @ _db_tile(db, t0, db.shape[0], steps).T - (thresh + 1)
             out[b0:b0 + 256] += (acc >= 0).sum(1, dtype=np.int32)
     return out
 
@@ -150,6 +163,106 @@ def test_count_kernel_model_matches_plain(length):
                                       want, err_msg=f"editdist {editdist}")
         if editdist == 0:
             assert not want.any()
+
+
+#: k at the top-k kernel's list edges: kcap 1, 2, 4, 8, 32 and 128
+TOPK_EDGE_KS = [1, 2, 3, 5, 20, 128]
+
+
+def _topk_model(q, db, length, k, n_splits):
+    """csrc/hamming_topk.cu's arithmetic in numpy: per block of 256 queries
+    with its k32 steps (the 1-step product of zeros for an all-N block),
+    database splits of whole 128-row tiles, tiles zero-padded at the ragged
+    edge, batches of 32 columns whose sums start at each row's bias
+    dK - L - 1 (dK: the distance of the row's K-th key, L + 1 while its
+    list is not full) and are staged as bytes, a warp's gate (some sum of
+    its 32 rows >= 0), each row's scan of its sums >= 0 on columns below
+    the split's end into its sorted list of kcap keys, and the merge of
+    the splits' lists.  Returns (nq, min(k, nd, 128)) int64 keys."""
+    nq, nd = q.shape[0], db.shape[0]
+    k_eff = min(k, nd, MAX_K)
+    kcap = 1 << (k_eff - 1).bit_length()
+    tiles = -(-nd // 128)
+    per_split = -(-tiles // n_splits) * 128
+    lists = np.full((nq, n_splits, kcap), INF_KEY, np.int64)
+    for b0 in range(0, nq, 256):
+        block = q[b0:b0 + 256]
+        steps = max(1, _block_steps(block))
+        a = _onehot_rows(block, 32 * steps)
+        for split in range(n_splits):
+            lo, hi = split * per_split, min(nd, (split + 1) * per_split)
+            best = np.full((block.shape[0], kcap), INF_KEY, np.int64)
+            for t0 in range(lo, hi, 128):
+                b = _db_tile(db, t0, hi, steps)
+                for n0 in range(0, min(128, hi - t0), 32):
+                    bias = np.minimum(best[:, -1] >> 24, length + 1) \
+                        - length - 1
+                    acc = a @ b[n0:n0 + 32].T + bias[:, None]
+                    assert -128 <= acc.min() and acc.max() <= 127
+                    col = t0 + n0 + np.arange(32)
+                    for w0 in range(0, block.shape[0], 32):
+                        w = slice(w0, w0 + 32)
+                        if not (acc[w] >= 0).any():
+                            continue
+                        keys = np.where(
+                            (acc[w] >= 0) & (col < hi),
+                            ((length + bias[w, None] - acc[w]) << 24) | col,
+                            INF_KEY)
+                        best[w] = np.sort(np.concatenate([best[w], keys], 1),
+                                          1)[:, :kcap]
+            lists[b0:b0 + 256, split] = best
+    return np.sort(lists.reshape(nq, -1), 1)[:, :k_eff]
+
+
+def _keys_to_pairs(keys, k):
+    """Keys -> (dist, idx) padded with -1 to k columns, as the JAX
+    package returns them."""
+    d, i = (t.numpy() for t in unpack_keys(torch.from_numpy(
+        keys.astype(np.int32))))
+    pad = np.full((keys.shape[0], k - keys.shape[1]), -1, np.int32)
+    return np.concatenate([d, pad], 1), np.concatenate([i, pad], 1)
+
+
+def _check_topk_model(q, db, length, ks):
+    """The model at 1 to 3 splits, and the JAX streaming kernel, against
+    ``hamming_topk_plain`` at each k of ``ks``."""
+    from guidemaker_tpu_torch.knn.hamming import hamming_topk_plain
+    nd = db.shape[0]
+    qt, dbt = (pack_codes(torch.from_numpy(x)) for x in (q, db))
+    for k in ks:
+        want = hamming_topk_plain(qt, dbt, length, k).numpy()
+        for n_splits in (1, 2, 3):
+            np.testing.assert_array_equal(
+                _topk_model(q, db, length, k, n_splits), want,
+                err_msg=f"k {k}, {n_splits} splits")
+        ref = stream_topk_device(q, prepare_db_codes(db, 128), nd, k, length,
+                                 db_tile=128, q_tile=32)
+        got = _keys_to_pairs(want, k)
+        np.testing.assert_array_equal(got[0], ref[0], err_msg=f"k {k}")
+        np.testing.assert_array_equal(got[1], ref[1], err_msg=f"k {k}")
+
+
+@pytest.mark.parametrize("length", COUNT_EDGE_LENGTHS)
+def test_topk_kernel_model_matches_plain_and_jax(length):
+    """The tensor-core top-k's gated epilogue equals ``hamming_topk_plain``
+    and the JAX streaming kernel exactly: k32 padding (L), every list edge
+    (k), 1 to 3 splits, a database ragged against its 128-row tiles with N
+    bases and duplicated rows, an all-N query, an all-N 256-query block and
+    a block whose queries end in N."""
+    rng = np.random.default_rng(200 + length)
+    q, db = _codes(rng, 600, 300, length)
+    q[256:512] = dna.INVALID
+    q[512:, max(1, length - 9):] = dna.INVALID
+    _check_topk_model(q, db, length, TOPK_EDGE_KS)
+
+
+@pytest.mark.parametrize("nd,k", [(1, 1), (3, 5), (100, 128), (129, 128)])
+def test_topk_kernel_model_small_database(nd, k):
+    """k above nd (the list keeps its sentinels and the wrapper pads with
+    -1), a database of one tile or just over it, and splits left empty."""
+    rng = np.random.default_rng(nd + k)
+    q, db = _codes(rng, 70, nd, 20)
+    _check_topk_model(q, db, 20, (k,))
 
 
 def test_pack_codes_full_width_and_n_rule():
@@ -346,6 +459,26 @@ def test_count_kernel_edges_on_card(cuda_device, L):
             assert torch.equal(
                 stream.hamming_count(q[:nq], db, L, editdist),
                 hamming_count_plain(q[:nq], db, L, editdist)), (nq, editdist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", COUNT_EDGE_LENGTHS)
+def test_topk_kernel_edges_on_card(cuda_device, L):
+    """The tensor-core top-k at its tiling's edges: k-padding (L), query
+    blocks (nq 1, 15, 4095), a database ragged against its 128-row tiles
+    (nd 200,003), an all-N block, a block whose queries end in N, every
+    list edge (k)."""
+    from guidemaker_tpu_torch.knn.hamming import hamming_topk_plain
+    rng = np.random.default_rng(L)
+    qn, dbn = _codes(rng, 4095, 200_003, L)
+    qn[256:512, max(1, L - 9):] = dna.INVALID
+    qn[512:768] = dna.INVALID
+    q = pack_codes(torch.from_numpy(qn).to(cuda_device))
+    db = pack_codes(torch.from_numpy(dbn).to(cuda_device))
+    for nq in (1, 15, 4095):
+        for k in TOPK_EDGE_KS:
+            assert torch.equal(stream.hamming_topk(q[:nq], db, L, k),
+                               hamming_topk_plain(q[:nq], db, L, k)), (nq, k)
 
 
 @pytest.mark.cuda
