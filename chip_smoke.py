@@ -11,9 +11,10 @@ Phases, one line each; any failure exits non-zero:
 2. build: the CUDA kernels of guidemaker_tpu_torch/csrc, one nvcc per
    source, all started together; ptxas's registers and spills for every
    kernel (each kcap of the top-k), and by ``cuobjdump -sass`` the IMMA
-   (tensor-core) and POPC instructions of the 2-bit count kernel and of
-   every kcap of the 2-bit top-k kernel: each must have IMMA and no POPC,
-   and neither may spill on the main path (top-k kcap <= 8);
+   (tensor-core), POPC and IDP4A (dp4a) instructions of the 2-bit and
+   packed count kernels and of every kcap of the 2-bit and packed top-k
+   kernels: each must have IMMA and neither POPC nor IDP4A, and none may
+   spill on the main path (the counts, top-k kcap <= 8);
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
@@ -22,6 +23,10 @@ Phases, one line each; any failure exits non-zero:
    2-bit count and top-k kernels at their tiling's edges (L 1, 8, 20, 24,
    25, 27 and 32; nq 1, 15 and 4095; nd 200,003; a query block ending in
    N and an all-N block; editdist 0-3 and L; k 1, 2, 3, 5, 20 and 128);
+   3d, the packed count and top-k kernels at their tiling's edges (L 1,
+   10, 11, 16, 20 and 21; nq 1, 15 and 4095; nd 200,002 and 200,003;
+   editdist 0-3, the first with 3L - 4 editdist + 1 <= 0, and L; k 1, 2,
+   3, 5, 20 and 128);
 4. the C. ruddii parity configuration (tests/test_parity_e2e.py) on the
    card, byte for byte against tests/test_data/golden_pretty_cruddii.csv.gz;
 5. P. aeruginosa retention (NGG/5prime/20, all unique guides against all,
@@ -40,7 +45,9 @@ Phases, one line each; any failure exits non-zero:
    plain top-k's);
 7. the same run with GUIDEMAKER_TPU_PACKED=1: the same targets table, the
    same control invariants, both packed kernels launched and neither 2-bit
-   kernel;
+   kernel; its controls join and wall; then the packed top-k on the run's
+   phase-2 queries against the plain packed top-k, and its time at kcap
+   1, 2, 4, 8, 16 and 32, each with its bound, as in phase 6;
 8. P. aeruginosa Levenshtein retention (NGG/5prime/20, all unique guides
    against all): at dist 2 the mask equals the Hamming mask (1,139,266
    retained); at dist 3 it is a subset of the Hamming dist-3 mask and, on
@@ -89,7 +96,8 @@ in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
 for the Myers top-k, phase 10 for the 3-gram count; the largest error
 seen; its time and its plain version's time in ms at the sizes its phase
 prints, and for the 2-bit top-k also at k 3 from phase 11 and at each
-kcap of phase 6's sweep; its bound at
+kcap of phase 6's sweep, for the packed top-k at each kcap of phase 7's
+sweep; its bound at
 the shape of its time, the larger of its operations at the card's peak
 for their type and its bytes at the memory rate, and which of the two
 sets it; ``library_ms`` null, as no single PyTorch call computes a
@@ -152,7 +160,12 @@ EDGE_NQ = (1, 15, 4095)
 EDGE_ND = 200_003
 #: the top-k's list edges (phase 3b): kcap 1, 2, 4, 8, 32 and 128
 EDGE_KS = (1, 2, 3, 5, 20, 128)
-#: the kcaps of phase 6's top-k sweep
+#: the packed kernels' tiling edges (phase 3d): guide lengths at their k32
+#: step edges (3L straddles a step everywhere, 3L = 63 at L 21), and
+#: databases ragged against their 128-row tiles, even and odd
+PACKED_EDGE_LENGTHS = (1, 10, 11, 16, 20, 21)
+PACKED_EDGE_ND = (200_002, 200_003)
+#: the kcaps of phase 6's and phase 7's top-k sweeps
 SWEEP_KCAPS = (1, 2, 4, 8, 16, 32)
 #: an H100 SXM's peaks (NVIDIA's data sheet, dense): int8 tensor-core
 #: operations, device-memory bytes, and INT32 operations (64 INT32 lanes a
@@ -178,6 +191,14 @@ def bound_ms(ops, rate, nbytes):
     t_ops = ops / rate * 1e3
     t_bytes = nbytes / BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hamming_ops(nq, nd, length):
+    """The int8 operations that the Hamming function of nq x nd pairs of
+    length-L guides needs: a dot of 3L lanes a pair, each base a vertex of
+    the tetrahedron in {-1,+1}^3 (the packed rows' code; the 2-bit kernels'
+    one-hot product computes the same function with 4L)."""
+    return 2 * nq * nd * 3 * length
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -280,8 +301,7 @@ def phase_kernels(count, topk, dev):
     if not ((d[:, 3:] == -1).all() and (i[:, 3:] == -1).all()
             and (d[:, :3] >= 0).all()):
         raise AssertionError("k > nd: -1 padding beyond nd is wrong")
-    # both bound by the one-hot product, 2 * nq * nd * 4L int8
-    bound = bound_ms(2 * 4096 * 200_000 * 80, INT8_OPS_PER_S,
+    bound = bound_ms(hamming_ops(4096, 200_000, 20), INT8_OPS_PER_S,
                      16 * (4096 + 200_000) + 4 * 4096 * 5)[0]
     say("phase 3 kernels vs plain: exact at nq=4096 nd=200000 L=20,27 "
         "editdist 0,1,2,3,L k 1,2,5,20,128 and k>nd; L=20 times: "
@@ -298,7 +318,7 @@ def topk_ms_by_splits(topk, q, db, length, k, want):
     sixteenth of it, each result equal to the plain top-k ``want``."""
     from guidemaker_tpu_torch.knn import stream
     real = stream._n_splits
-    plan = real(q.shape[0], db.shape[0], 256, q.device)
+    plan = real(q.shape[0], db.shape[0], q.device)
     out = {}
     try:
         for n in dict.fromkeys((plan, -(-plan // 4), -(-plan // 16))):
@@ -398,13 +418,53 @@ def phase_packed_kernels(pcount, ptopk, dev):
     if not ((d[:, 3:] == -1).all() and (i[:, 3:] == -1).all()
             and (d[:, :3] >= 0).all()):
         raise AssertionError("packed k > nd: -1 padding beyond nd is wrong")
-    bound = bound_ms(2 * 4096 * nd * 80, INT8_OPS_PER_S,
+    bound = bound_ms(hamming_ops(4096, nd, 20), INT8_OPS_PER_S,
                      128 * (4096 + (nd + 1) // 2) + 4 * 4096 * 5)[0]
     say("phase 3 packed kernels vs plain (and vs the 2-bit kernels): exact "
         "at nq=4096 nd=200001 L=20,21 editdist 0,1,2,3,L k 1,2,5,20,128 and "
         "k>nd; L=20 ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       times.items())
         + f"; int8 bound of either {bound:.4f} ms")
+
+
+def phase_packed_edges(pcount, ptopk, dev):
+    """The packed count and top-k kernels against their plain versions at
+    their tiling's edges: k32 steps (PACKED_EDGE_LENGTHS), query blocks
+    (EDGE_NQ), databases ragged against their tiles with an odd slot left
+    over or not (PACKED_EDGE_ND), every editdist edge (0-3, the first with
+    T + 1 <= 0, where a zero slot passes the count's gate, and L) and
+    every list edge (EDGE_KS)."""
+    from guidemaker_tpu_torch.knn import packed as pk
+    from guidemaker_tpu_torch.knn import stream
+    rng = np.random.default_rng(98)
+    n_count = n_topk = 0
+    for length in PACKED_EDGE_LENGTHS:
+        first_neg = -(-(3 * length + 1) // 4)
+        edits = sorted({e for e in (0, 1, 2, 3, first_neg, length)
+                        if e <= length})
+        for nd in PACKED_EDGE_ND:
+            qn, dbn = random_codes(rng, max(EDGE_NQ), nd, length,
+                                   with_n=False)
+            q = pk.query_rows(torch.from_numpy(qn).to(dev))
+            db = pk.db_rows(torch.from_numpy(dbn).to(dev))
+            for nq in EDGE_NQ:
+                for e in edits:
+                    pcount.compare(
+                        stream.packed_count(q[:nq], db, nd, length, e),
+                        pk.packed_count_plain(q[:nq], db, nd, length, e),
+                        f"packed count L={length} nd={nd} nq={nq} "
+                        f"editdist={e}")
+                    n_count += 1
+                for k in EDGE_KS:
+                    ptopk.compare(
+                        stream.packed_topk(q[:nq], db, nd, length, k),
+                        pk.packed_topk_plain(q[:nq], db, nd, length, k),
+                        f"packed top-k L={length} nd={nd} nq={nq} k={k}")
+                    n_topk += 1
+    say(f"phase 3d packed count and top-k kernels vs plain at their tiling "
+        f"edges: exact in {n_count} and {n_topk} comparisons, L "
+        f"{PACKED_EDGE_LENGTHS}, nq {EDGE_NQ}, nd {PACKED_EDGE_ND}, "
+        f"editdist 0,1,2,3,ceil((3L+1)/4),L, k {EDGE_KS}")
 
 
 def leven_codes(rng, nq, nd, length):
@@ -557,9 +617,8 @@ def phase_retention(count, pcount, dev, uniq, t_host):
         kern.compare(got, want, f"P. aeruginosa all-vs-all {layout} count")
         counts[layout] = got
         ms = cuda_ms(run, 3)
-        # the one-hot product of the JAX kernel: 2 * n * n * 4L int8
-        bound = kern.timed(ms, plain_ms, 2 * n * n * 80, INT8_OPS_PER_S,
-                           q.numel() * q.element_size()
+        bound = kern.timed(ms, plain_ms, hamming_ops(n, n, 20),
+                           INT8_OPS_PER_S, q.numel() * q.element_size()
                            + db.numel() * db.element_size() + 4 * n)
         say(f"phase 5 P. aeruginosa retention, {layout} layout: {retained} of "
             f"{n} guides retained (expected {PA_RETAINED}); kernel == plain "
@@ -705,24 +764,23 @@ def check_neighbor_lists(topk, res, k, dev):
     return need, q, want, ms, plain_ms
 
 
-def kcap_sweep(topk, q, db, length, want):
-    """The top-k's time on the queries ``q`` at each kcap of SWEEP_KCAPS,
-    with its bound; each list must be the first columns of the largest,
-    and that one's first columns the plain top-k ``want``."""
-    from guidemaker_tpu_torch.knn import stream
-    lists = {k: stream.hamming_topk(q, db, length, k) for k in SWEEP_KCAPS}
+def kcap_sweep(topk, run, want, ops, in_bytes):
+    """The time of the top-k ``run(k)`` at each kcap of SWEEP_KCAPS, with
+    its bound (``ops`` int8 operations; ``in_bytes`` read and the keys
+    written); each list must be the first columns of the largest, and that
+    one's first columns the plain top-k ``want``."""
+    lists = {k: run(k) for k in SWEEP_KCAPS}
     top = lists[max(SWEEP_KCAPS)]
     for k, got in lists.items():
         topk.compare(got, top[:, :k], f"phase-2 top-k at k {k} against the "
                      f"first {k} columns at k {max(SWEEP_KCAPS)}")
     topk.compare(top[:, :want.shape[1]], want,
                  f"phase-2 top-k at k {max(SWEEP_KCAPS)}, first columns")
-    nq, nd = q.shape[0], db.shape[0]
     rows = []
     for k in SWEEP_KCAPS:
-        ms = cuda_ms(lambda: stream.hamming_topk(q, db, length, k), 3)
-        bound = bound_ms(2 * nq * nd * 4 * length, INT8_OPS_PER_S,
-                         16 * (nq + nd) + 4 * nq * k)[0]
+        ms = cuda_ms(lambda: run(k), 3)
+        bound = bound_ms(ops, INT8_OPS_PER_S,
+                         in_bytes + 4 * want.shape[0] * k)[0]
         rows.append((k, ms, bound))
     return rows
 
@@ -730,6 +788,7 @@ def kcap_sweep(topk, q, db, length, want):
 def phase_design(count, topk, dev):
     import pandas as pd
     from guidemaker_tpu_torch.io import parse_genbank
+    from guidemaker_tpu_torch.knn import stream
     cfg, out, res, launches, wall, lines = design_run(dev, packed=False)
     count.row["launches"], topk.row["launches"] = launches[:2]
     for line in lines:
@@ -746,9 +805,12 @@ def phase_design(count, topk, dev):
                                                       dev)
     idx = res.processor.index
     nq, nd = len(need), len(idx)
-    topk.timed(ms, plain_ms, 2 * nq * nd * 4 * idx.length, INT8_OPS_PER_S,
+    ops = hamming_ops(nq, nd, idx.length)
+    topk.timed(ms, plain_ms, ops, INT8_OPS_PER_S,
                16 * (nq + nd) + 4 * nq * cfg.knum)
-    sweep = kcap_sweep(topk, q, idx._db, idx.length, want)
+    sweep = kcap_sweep(
+        topk, lambda k: stream.hamming_topk(q, idx._db, idx.length, k), want,
+        ops, 16 * (nq + nd))
     topk.row["ms_by_kcap"] = {str(k): round(t, 3) for k, t, _ in sweep}
     say(f"phase 6 top-k by kcap on the {nq} phase-2 queries x {nd} guides: "
         + ", ".join(f"kcap {k} {t:.3f} ms (bound {b:.3f} ms, share "
@@ -808,9 +870,17 @@ def phase_design_packed(pcount, ptopk, dev, codes_out):
     ptopk.compare(got, want, "P. aeruginosa phase-2 packed top-k")
     ms = cuda_ms(lambda: stream.packed_topk(q, db, n, idx.length, cfg.knum),
                  3)
-    ptopk.timed(ms, plain_ms, 2 * len(need) * n * 4 * idx.length,
-                INT8_OPS_PER_S, q.numel() + db.numel() + 4 * len(need)
-                * cfg.knum)
+    ops = hamming_ops(len(need), n, idx.length)
+    ptopk.timed(ms, plain_ms, ops, INT8_OPS_PER_S,
+                q.numel() + db.numel() + 4 * len(need) * cfg.knum)
+    sweep = kcap_sweep(
+        ptopk, lambda k: stream.packed_topk(q, db, n, idx.length, k), want,
+        ops, q.numel() + db.numel())
+    ptopk.row["ms_by_kcap"] = {str(k): round(t, 3) for k, t, _ in sweep}
+    say(f"phase 7 packed top-k by kcap on the {len(need)} phase-2 queries x "
+        f"{n} guides: " + ", ".join(
+            f"kcap {k} {t:.3f} ms (bound {b:.3f} ms, share {b / t:.3f})"
+            for k, t, b in sweep))
     say(f"phase 7 P. aeruginosa design run (--controls 1000 --seed {SEED}, "
         f"GUIDEMAKER_TPU_PACKED=1) on {dev}: targets.csv.gz content == "
         f"phase 6's ({len(tables[1])} bytes), {wall:.2f} s wall, controls "
@@ -1147,10 +1217,25 @@ def ptxas_report(log: str):
     return out
 
 
+def tc_kernels(kcaps):
+    """The 2-bit and packed count kernels, and the 2-bit and packed top-k
+    kernels at each of ``kcaps``."""
+    return tuple(name for prefix in ("", "packed_")
+                 for name in [f"{prefix}count_kernel"] + [
+                     f"{prefix}topk_kernel<{k}>" for k in kcaps])
+
+
+#: the tensor-core kernels whose SASS phase 2 reads (every kcap a top-k
+#: kernel is built for), and those that must not spill (the kcaps built for
+#: two blocks an SM, which the main path runs)
+TC_KERNELS = tc_kernels((1, 2, 4, 8, 16, 32, 64, 128))
+NO_SPILL_KERNELS = tc_kernels((1, 2, 4, 8))
+
+
 def kernel_sass(lib: str):
-    """{kernel: (IMMA, POPC)} for the 2-bit count kernel and each kcap of
-    the 2-bit top-k kernel, from the SASS of the built library by
-    ``cuobjdump -sass`` from nvcc's toolkit."""
+    """{kernel: (IMMA, POPC, IDP4A)} for each of TC_KERNELS, from the SASS
+    of the built library by ``cuobjdump -sass`` from nvcc's toolkit (dp4a
+    is ``IDP.4A`` there)."""
     from guidemaker_tpu_torch.knn import build
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
@@ -1158,9 +1243,9 @@ def kernel_sass(lib: str):
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = kernel_name(part.split(None, 1)[0])
-        if fn == "count_kernel" or fn.startswith("topk_kernel<"):
+        if fn in TC_KERNELS:
             ops = [w.split(".")[0] for w in part.split()]
-            out[fn] = (ops.count("IMMA"), ops.count("POPC"))
+            out[fn] = (ops.count("IMMA"), ops.count("POPC"), ops.count("IDP"))
     return out
 
 
@@ -1191,19 +1276,18 @@ def main() -> int:
         say(f"  ptxas {fn}: {regs} registers, spill stores {st} B, spill "
             f"loads {ld} B")
     sass = kernel_sass(lib)
-    want = ["count_kernel"] + [f"topk_kernel<{k}>" for k in
-                               (1, 2, 4, 8, 16, 32, 64, 128)]
-    for fn in want:
-        imma, popc = sass.get(fn, (0, 0))
-        if imma == 0 or popc:
-            raise AssertionError(f"{fn} SASS: {imma} IMMA, {popc} POPC; it "
-                                 f"must run on the tensor cores")
-    for fn in want[:5]:  # the count and the main path's kcaps 1, 2, 4, 8
+    for fn in TC_KERNELS:
+        imma, popc, idp = sass.get(fn, (0, 0, 0))
+        if imma == 0 or popc or idp:
+            raise AssertionError(f"{fn} SASS: {imma} IMMA, {popc} POPC, {idp} "
+                                 f"IDP4A; it must run on the tensor cores")
+    for fn in NO_SPILL_KERNELS:
         if fn not in ptxas or ptxas[fn][1] or ptxas[fn][2]:
             raise AssertionError(f"{fn}: ptxas reports spills or nothing: "
                                  f"{ptxas.get(fn)}")
     say("  SASS (cuobjdump): " + ", ".join(
-        f"{fn} {sass[fn][0]} IMMA {sass[fn][1]} POPC" for fn in want))
+        f"{fn} {sass[fn][0]} IMMA {sass[fn][1]} POPC {sass[fn][2]} IDP4A"
+        for fn in TC_KERNELS))
     count = Kernel("hamming_count",
                    "guidemaker_tpu_torch/csrc/hamming_count.cu",
                    "guidemaker_tpu/knn/pallas_stream.py:164")
@@ -1225,6 +1309,7 @@ def main() -> int:
     phase_kernels(count, topk, dev)
     phase_edges(count, topk, dev)
     phase_packed_kernels(pcount, ptopk, dev)
+    phase_packed_edges(pcount, ptopk, dev)
     phase_leven_kernels(fcount, ltopk, dev)
     phase_cruddii(dev)
     t0 = time.time()

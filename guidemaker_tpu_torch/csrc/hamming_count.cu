@@ -10,7 +10,9 @@
 // registers: the nq x nd match matrix never leaves the SM.
 //
 // What bounds it on an H100: operations, not bytes.  The product is
-// 2 * nq * nd * 4L int8 operations (1,979 TOP/s dense); the threshold
+// 2 * nq * nd * 4L int8 operations (1,979 TOP/s dense), where the function
+// needs 2 * nq * nd * 3L (the tetrahedral code of packed_common.cuh, the
+// bound that chip_smoke.py states); the threshold
 // epilogue is a few integer operations a pair on the INT32 pipes.  The
 // database streams from L2 and is reused by the 256 queries of a block, so
 // memory is far below either.  The design follows:

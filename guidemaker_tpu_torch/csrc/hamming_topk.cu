@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100: operations.  The match counts are the count
 // kernel's one-hot product, 2 * nq * nd * 4L int8 operations (1,979 TOP/s
-// dense).  Building a key and testing it against a running top-K list is
+// dense), where the function needs 3L lanes a pair (the bound that
+// chip_smoke.py states, as in hamming_count.cu).  Building a key and testing it against a running top-K list is
 // CUDA-core work that would cost several times the product if every pair
 // paid it; the gated epilogue below makes most pairs pay nothing.  The
 // design:

@@ -2,6 +2,8 @@
 // (hamming_count.cu, hamming_topk.cu): the one-hot layout, the block shape,
 // the A fragments decoded from the packed query rows, the database tile
 // decoded into shared memory, and one warp's product with 32 of its rows.
+// The packed-pair kernels (packed_common.cuh) share its block shape, tile
+// height, ldmatrix addressing and mma wrapper.
 //
 // Layout: base i of a packed row (hamming_common.cuh) becomes the 32-bit
 // word `valid_i ? 1 << (8 * code_i) : 0`, four one-hot bytes, and a row

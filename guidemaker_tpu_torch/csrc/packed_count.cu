@@ -1,70 +1,133 @@
 // Packed-pair count kernel: for each query, the number of database guides
 // at Hamming distance < editdist, with two database guides per 128-lane
-// int8 row (packed_common.cuh).
+// int8 row (packed_common.cuh), on the int8 tensor cores.
 //
 // Replaces the JAX package's Pallas kernel
 // guidemaker_tpu/knn/pallas_packed.py:_count_kernel (launched by
-// _packed_count), which ran the same product on the TPU's int8 matrix
-// unit.  What it computes: v = q . d per (query, row); A and B decoded
-// from v; dist < e <=> m > L - e <=> A > T (and B > T) with T = 3L - 4e;
-// the odd slot of the last row is masked by its global guide index when nd
-// is odd (a zero slot decodes to m = L/4, not to "no match").
+// _packed_count), which ran the same int8 product on the TPU's matrix unit
+// and decoded both guides' sums from the one dot v = s*A + B of a row.
+// What it computes: dist < e <=> m > L - e <=> A > T (and B > T) with
+// T = 3L - 4e, every real guide counted once.
 //
-// What bounds it on an H100: integer issue.  Each row (two guides) costs
-// 32 dp4a, eight 16-byte shared-memory broadcasts and a dozen decode and
-// compare instructions, against about a dozen logic operations and two
-// popcounts per guide in hamming_count.cu.  The design is the simple one:
-//   * one query row per thread, held as 32 int32 words in registers;
-//   * database rows staged in shared memory and read as broadcasts;
-//   * the grid is query blocks x database splits, so that small query
-//     sets still fill the card; each split adds its count with one
-//     integer atomicAdd per query, exact and independent of block order.
-// A later PR would run exactly these rows through the tensor cores (int8
-// mma.sync or wgmma), the form of the product that the TPU's MXU ran.
+// What bounds it on an H100: operations.  The product is the packed rows'
+// int8 dot, 2 * nq * (nd / 2) * 6L = 2 * nq * nd * 3L useful operations
+// (the bound that chip_smoke.py states), at 1,979 TOP/s dense; the threshold epilogue is a few integer operations a
+// sum on the INT32 pipes.  The database streams from L2 and is reused by
+// the 256 queries of a block.  The design:
+//   * the product is packed_common.cuh's: mma.sync.m16n8k32 s8 -> s32 on
+//     the rows as they stand, with the sum split into acc_e = s*A (even
+//     steps) and acc_o = B (odd steps) instead of decoding v in float32 on
+//     every pair (the dp4a kernel it replaces spent 32 dp4a and a float
+//     decode a pair row on the CUDA cores); NS + 1 MMAs a 16 x 16 tile of
+//     (query, guide) pairs, 5 at L 17..21, where the 2-bit count needs 6
+//     for the same pairs at L 20;
+//   * 8 warps of 32 queries held as A fragments, 128-row tiles copied by
+//     cp.async into a two-buffer ring (the rows need no decode, so they
+//     need not pass through registers), read by ldmatrix.x4;
+//   * the gate is the 2-bit count's, with no decode: acc_e starts at
+//     -s*(T+1) and acc_o at -(T+1), so a pair counts iff its sum is >= 0.
+//     A lane ANDs its 32 sums; if the sign bit survives, none counts (the
+//     common case), else each sum >= 0 is counted when its guide index is
+//     below the split's end and nd (a zero slot sums to 0, which passes
+//     whenever T + 1 <= 0, e.g. at editdist L);
+//   * the NS k32 steps (1..4) are a template parameter, set from L by
+//     gm::with_pair_steps, as the length is an argument of the C entry
+//     point;
+//   * the database is cut into gridDim.y splits of whole tiles so that
+//     small query sets still fill the card; each split adds its per-query
+//     counts, summed over the quad, with one integer atomicAdd, so the
+//     result is exact and does not depend on the order in which blocks
+//     finish.
+// Targets sm_90a (mma.sync, ldmatrix and cp.async exist from sm_80; wgmma
+// and TMA, Hopper's faster path to the tensor cores, are not used).
 #include <stdint.h>
 
 #include "packed_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 256;  // database rows per shared-memory tile (32 KB)
+using gm::kMTiles;
+using gm::kPairNTiles;
+using gm::kQPerBlock;
+using gm::kThreads;
+using gm::kTile;
 
-__global__ void __launch_bounds__(kThreads)
-    packed_count_kernel(const int4* __restrict__ q, int nq,
-                        const int4* __restrict__ db, int n2, int nd,
-                        int length, int thresh, int s, float inv_s,
-                        int rows_per_split, int* __restrict__ out) {
-  __shared__ int4 tile[kTile * gm::kPackedVecs];
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  int qr[4 * gm::kPackedVecs];
-  if (qi < nq) {
-    gm::load_row(q + static_cast<size_t>(qi) * gm::kPackedVecs, qr);
-  } else {
+template <int NS>
+__device__ __forceinline__ void count_block(
+    const uint32_t* __restrict__ q, int nq, const int4* __restrict__ db,
+    int lo, int hi, int ghi, int three_l, int bias_e, int bias_o,
+    int* __restrict__ out, uint8_t* ring) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int qw = blockIdx.x * kQPerBlock + (threadIdx.x >> 5) * 32;
+  uint32_t ae[kMTiles][gm::even_steps(NS)][4];
+  uint32_t ao[kMTiles][gm::odd_steps(NS)][4];
+  gm::load_pair_a<NS>(ae, ao, q, nq, qw, three_l);
+  int cnt[kMTiles][2] = {};
+
+  gm::pair_tiles<NS>(db, lo, hi, ring, [&](uint32_t src, int t0, int n0) {
+    int acc_e[kMTiles][kPairNTiles][4], acc_o[kMTiles][kPairNTiles][4];
 #pragma unroll
-    for (int i = 0; i < 4 * gm::kPackedVecs; ++i) qr[i] = 0;
-  }
-  int cnt = 0;
-  const int lo = blockIdx.y * rows_per_split;
-  const int hi = min(n2, lo + rows_per_split);
-  for (int t = lo; t < hi; t += kTile) {
-    const int rows = min(kTile, hi - t);
-    __syncthreads();
-    const int4* src = db + static_cast<size_t>(t) * gm::kPackedVecs;
-    for (int i = threadIdx.x; i < rows * gm::kPackedVecs; i += kThreads)
-      tile[i] = src[i];
-    __syncthreads();
-#pragma unroll 2
-    for (int r = 0; r < rows; ++r) {
-      const int v = gm::packed_dot(qr, tile + r * gm::kPackedVecs);
-      const int a = gm::decode_even(v, length, inv_s);
-      const int b = v - s * a;
-      // the even slot of every row is a real guide; the odd one is not
-      // when it is the last row of an odd nd
-      cnt += (a > thresh) + ((b > thresh) & (2 * (t + r) + 1 < nd));
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kPairNTiles; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_e[mt][nt][i] = bias_e;
+          acc_o[mt][nt][i] = bias_o;
+        }
+    gm::pair_mma_batch<NS>(acc_e, acc_o, ae, ao, src, n0);
+    int all = -1;
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kPairNTiles; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) all &= acc_e[mt][nt][i] & acc_o[mt][nt][i];
+    if (all < 0) return;  // every sum is < 0: nothing counts
+    // the even guide of the lane's pair row 8 nt + 2t + e is
+    // ge + 16 nt + 2e, its odd guide one more
+    const int ge = 2 * (t0 + n0 + 2 * t);
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kPairNTiles; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int gi = ge + 16 * nt + 2 * (i & 1);
+          cnt[mt][i >> 1] += (acc_e[mt][nt][i] >= 0 && gi < ghi) +
+                             (acc_o[mt][nt][i] >= 0 && gi + 1 < ghi);
+        }
+  });
+  // the quad's four threads hold the same rows' counts over other columns
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      int c = cnt[mt][half];
+      c += __shfl_xor_sync(0xffffffffu, c, 1);
+      c += __shfl_xor_sync(0xffffffffu, c, 2);
+      const int qi = qw + mt * 16 + half * 8 + g;
+      if (t == 0 && qi < nq && c != 0) atomicAdd(out + qi, c);
     }
   }
-  if (qi < nq && cnt != 0) atomicAdd(out + qi, cnt);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    packed_count_kernel(const uint32_t* __restrict__ q, int nq,
+                        const int4* __restrict__ db, int nd, int length,
+                        int thresh, int rows_per_split,
+                        int* __restrict__ out) {
+  __shared__ __align__(16) uint8_t ring[gm::kPairRing];
+  const int lo = blockIdx.y * rows_per_split;
+  const int hi = min((nd + 1) / 2, lo + rows_per_split);
+  // guides below ghi are real and in this split
+  const int ghi = min(2 * hi, nd);
+  const int bias_o = -(thresh + 1), bias_e = (4 * length + 1) * bias_o;
+  const int three_l = 3 * length;
+  gm::with_pair_steps(length, [&](auto ns) {
+    count_block<decltype(ns)::value>(q, nq, db, lo, hi, ghi, three_l, bias_e,
+                                     bias_o, out, ring);
+  });
 }
 
 }  // namespace
@@ -80,14 +143,14 @@ extern "C" int gm_packed_count(const void* q, int nq, const void* db, int nd,
       editdist < 0 || editdist > length || n_splits <= 0 ||
       n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int s = 4 * length + 1;
-  const float inv_s = 1.0f / static_cast<float>(s);
-  const int rows_per_split = (n2 + n_splits - 1) / n_splits;
-  const dim3 grid((nq + kThreads - 1) / kThreads, n_splits);
+  // whole tiles a split, so that only the last split has a ragged tile
+  const int tiles = (n2 + kTile - 1) / kTile;
+  const int rows_per_split = (tiles + n_splits - 1) / n_splits * kTile;
+  const dim3 grid((nq + kQPerBlock - 1) / kQPerBlock, n_splits);
   packed_count_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(q), nq, static_cast<const int4*>(db), n2, nd,
-      length, 3 * length - 4 * editdist, s, inv_s, rows_per_split,
+      static_cast<const uint32_t*>(q), nq, static_cast<const int4*>(db), nd,
+      length, 3 * length - 4 * editdist, rows_per_split,
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

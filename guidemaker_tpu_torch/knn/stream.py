@@ -54,6 +54,8 @@ packed_topk_launches = LaunchCounter()
 feature_count_launches = LaunchCounter()
 leven_topk_launches = LaunchCounter()
 
+#: queries a block of every kernel
+_Q_PER_BLOCK = 256
 #: blocks the split choice aims to have in flight on each SM
 _BLOCKS_PER_SM = 8
 #: fewest database rows worth a split of their own
@@ -78,12 +80,11 @@ def _check(q: torch.Tensor, db: torch.Tensor, length: int) -> None:
                          f"got {db.shape[0]}")
 
 
-def _n_splits(nq: int, nd: int, q_per_block: int,
-              device: torch.device) -> int:
+def _n_splits(nq: int, nd: int, device: torch.device) -> int:
     """Database splits that bring the grid to about ``_BLOCKS_PER_SM``
     blocks per SM, without splits smaller than ``_MIN_SPLIT_ROWS``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_blocks = -(-nq // q_per_block)
+    q_blocks = -(-nq // _Q_PER_BLOCK)
     want = -(-_BLOCKS_PER_SM * sms // q_blocks)
     return max(1, min(want, -(-nd // _MIN_SPLIT_ROWS), 65535))
 
@@ -106,7 +107,7 @@ def hamming_count(q: torch.Tensor, db: torch.Tensor, length: int,
     with torch.cuda.device(q.device):
         err = lib.gm_hamming_count(
             q.data_ptr(), nq, db.data_ptr(), nd, length - editdist,
-            _n_splits(nq, nd, 256, q.device), out.data_ptr(),
+            _n_splits(nq, nd, q.device), out.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"hamming_count kernel launch failed: CUDA error "
@@ -130,7 +131,7 @@ def hamming_topk(q: torch.Tensor, db: torch.Tensor, length: int,
     if nq == 0:
         return out
     kcap = 1 << (k_eff - 1).bit_length()
-    n_splits = _n_splits(nq, nd, 256, q.device)
+    n_splits = _n_splits(nq, nd, q.device)
     partial = torch.empty((nq, n_splits, kcap), dtype=torch.int32,
                           device=q.device)
     lib = build.library()
@@ -189,7 +190,7 @@ def packed_count(q: torch.Tensor, db: torch.Tensor, nd: int, length: int,
     with torch.cuda.device(q.device):
         err = lib.gm_packed_count(
             q.data_ptr(), nq, db.data_ptr(), nd, length, editdist,
-            _n_splits(nq, db.shape[0], 128, q.device), out.data_ptr(),
+            _n_splits(nq, db.shape[0], q.device), out.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"packed_count kernel launch failed: CUDA error "
@@ -214,7 +215,7 @@ def packed_topk(q: torch.Tensor, db: torch.Tensor, nd: int, length: int,
     if nq == 0:
         return out
     kcap = 1 << (k_eff - 1).bit_length()
-    n_splits = _n_splits(nq, db.shape[0], 128, q.device)
+    n_splits = _n_splits(nq, db.shape[0], q.device)
     partial = torch.empty((nq, n_splits, kcap), dtype=torch.int32,
                           device=q.device)
     lib = build.library()
@@ -267,7 +268,7 @@ def feature_count(q_rows: torch.Tensor, db_rows: torch.Tensor, n_words: int,
     with torch.cuda.device(q_rows.device):
         err = lib.gm_feature_count(
             q_rows.data_ptr(), nq, db_rows.data_ptr(), nd, n_words, thresh,
-            _n_splits(nq, nd, 256, q_rows.device), out.data_ptr(),
+            _n_splits(nq, nd, q_rows.device), out.data_ptr(),
             torch.cuda.current_stream(q_rows.device).cuda_stream)
     if err:
         raise RuntimeError(f"feature_count kernel launch failed: CUDA error "
@@ -293,7 +294,7 @@ def leven_topk(q: torch.Tensor, db: torch.Tensor, length: int,
     if nq == 0:
         return out
     kcap = 1 << (k_eff - 1).bit_length()
-    n_splits = _n_splits(nq, nd, 256, q.device)
+    n_splits = _n_splits(nq, nd, q.device)
     partial = torch.empty((nq, n_splits, kcap), dtype=torch.int32,
                           device=q.device)
     lib = build.library()
