@@ -11,10 +11,15 @@ Phases, one line each; any failure exits non-zero:
 2. build: the CUDA kernels of guidemaker_tpu_torch/csrc, one nvcc per
    source, all started together; ptxas's registers and spills for every
    kernel (each kcap of the top-k), and by ``cuobjdump -sass`` the IMMA
-   (tensor-core), POPC and IDP4A (dp4a) instructions of the 2-bit and
-   packed count kernels and of every kcap of the 2-bit and packed top-k
-   kernels: each must have IMMA and neither POPC nor IDP4A, and none may
-   spill on the main path (the counts, top-k kcap <= 8);
+   and BMMA (int8 and 1-bit tensor-core), POPC and IDP4A (dp4a)
+   instructions of the 2-bit and packed count kernels, of every kcap of
+   the 2-bit and packed top-k kernels (each must have IMMA) and of the
+   3-gram count at each of its 8 k256 step counts (BMMA), none with POPC
+   or IDP4A, and none may spill on the main path (the counts, top-k kcap
+   <= 8, the 3-gram count at <= 5 steps); then the tensor-core rate probe
+   (csrc/mma_rate.cu): s8 m16n8k32 and b1 m16n8k256 mma.sync chains,
+   each kind's operations a second and SASS opcode, and from their ratio
+   the card's 1-bit rate that the 3-gram count's bound uses;
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
@@ -65,7 +70,9 @@ Phases, one line each; any failure exits non-zero:
    3-gram count kernel was launched, and each tier's size and seconds are
    printed.  Reduced, because at genome size the e >= 4 all-vs-all is some
    1.3e12 pairs of 3-gram counting and a large ambiguous set, a run of its
-   own rather than a smoke phase;
+   own rather than a smoke phase; then one timed tier-1 count at genome
+   size (every unique guide, t 3, thresh 8), equal to the plain count on a
+   fixed sample of 4,096 queries, with both its bounds;
 11. the scored design run: phase 6's run with --knum 3
    --doench_efficiency_score --cfd_score.  The three golden Doench floats
    are float32-exact; the table holds phase 6's rows less those whose
@@ -89,7 +96,9 @@ the 3-gram count on the rows of random codes with N bases and duplicated
 rows (4096 x 200,000, L 20 and 27, t 3 and 4, both directions, the
 threshold's edges), and the Myers top-k on codes with N bases, duplicates
 and near-identical pairs (LEVEN_SHAPE, L 20, 27 and 32, k 1, 2, 5, 64 and
-128).
+128); then the 3-gram count at its tiling's edges (FEATURE_EDGE_WORDS,
+nq 1, 15 and 4095, nd 200,003, an all-N block, thresholds 0, G - 3t - 1,
+G - 1 and G, both directions).
 
 The line before the last is a JSON object describing each kernel (launches
 in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
@@ -97,11 +106,13 @@ for the Myers top-k, phase 10 for the 3-gram count; the largest error
 seen; its time and its plain version's time in ms at the sizes its phase
 prints, and for the 2-bit top-k also at k 3 from phase 11 and at each
 kcap of phase 6's sweep, for the packed top-k at each kcap of phase 7's
-sweep; its bound at
-the shape of its time, the larger of its operations at the card's peak
-for their type and its bytes at the memory rate, and which of the two
-sets it; ``library_ms`` null, as no single PyTorch call computes a
-thresholded count or a packed-key top-k); the last line
+sweep, for the 3-gram count also at genome size (``ms_genome``); its
+bound at the shape of its time, the larger of its operations at the
+card's peak for their type and its bytes at the memory rate, and which of
+the two sets it; for the 3-gram count the smaller of its int8 and 1-bit
+bounds, named by ``bound_kind``; ``library_ms`` null, as no single
+PyTorch call computes a thresholded count or a packed-key top-k); the
+last line
 is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -165,6 +176,9 @@ EDGE_KS = (1, 2, 3, 5, 20, 128)
 #: databases ragged against their 128-row tiles, even and odd
 PACKED_EDGE_LENGTHS = (1, 10, 11, 16, 20, 21)
 PACKED_EDGE_ND = (200_002, 200_003)
+#: the 3-gram count's tiling edges (phase 3c): row widths G = L - 2 words
+#: at its k256 step edges (a step is 4 words; 1..8 steps)
+FEATURE_EDGE_WORDS = (1, 4, 5, 8, 17, 18, 25, 29, 30)
 #: the kcaps of phase 6's and phase 7's top-k sweeps
 SWEEP_KCAPS = (1, 2, 4, 8, 16, 32)
 #: an H100 SXM's peaks (NVIDIA's data sheet, dense): int8 tensor-core
@@ -191,6 +205,24 @@ def bound_ms(ops, rate, nbytes):
     t_ops = ops / rate * 1e3
     t_bytes = nbytes / BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def feature_bounds(nq, nd, n_words, nbytes, b1_peak):
+    """{"int8": (ms, by), "1-bit": (ms, by)}: the bounds of the 3-gram count
+    of nq x nd rows of n_words words.  Either way the function is
+    2 * nq * nd * 64 n_words operations, 64 lanes a gram position: the JAX
+    kernel's int8 product at 1,979 TOP/s, or the 1-bit product at
+    ``b1_peak``, the card's 1-bit rate taken as the probe's b1/s8 ratio of
+    operations (phase 2) times 1,979 TOP/s, as the data sheet gives none."""
+    ops = 2 * nq * nd * 64 * n_words
+    return {"int8": bound_ms(ops, INT8_OPS_PER_S, nbytes),
+            "1-bit": bound_ms(ops, b1_peak, nbytes)}
+
+
+def least_bound(bounds):
+    """(ms, by, kind) of the smallest of ``bounds`` (feature_bounds)."""
+    kind = min(bounds, key=lambda k: bounds[k][0])
+    return (*bounds[kind], kind)
 
 
 def hamming_ops(nq, nd, length):
@@ -230,9 +262,13 @@ class Kernel:
     def timed(self, ms, plain_ms, ops, rate, nbytes):
         """Its time and its plain version's, and its bound at the same
         shape (:func:`bound_ms`)."""
-        bound, by = bound_ms(ops, rate, nbytes)
+        return self.timed_bound(ms, plain_ms, *bound_ms(ops, rate, nbytes))
+
+    def timed_bound(self, ms, plain_ms, bound, by, **extra):
+        """Its time and its plain version's, and the bound ``bound`` ms set
+        by ``by`` at the same shape, with the keys ``extra``."""
         self.row.update(ms=round(ms, 3), plain_ms=round(plain_ms, 3),
-                        bound_ms=round(bound, 4), bound_by=by)
+                        bound_ms=round(bound, 4), bound_by=by, **extra)
         return self.row["bound_ms"]
 
     def compare(self, got: torch.Tensor, want: torch.Tensor, what: str):
@@ -484,7 +520,7 @@ def leven_codes(rng, nq, nd, length):
     return q, db
 
 
-def phase_leven_kernels(fcount, ltopk, dev):
+def phase_leven_kernels(fcount, ltopk, dev, b1_peak):
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.dp import leven_topk_plain
     from guidemaker_tpu_torch.knn.features import (feature_count_plain,
@@ -530,16 +566,50 @@ def phase_leven_kernels(fcount, ltopk, dev):
                 times["leven top-k"] = cuda_ms(
                     lambda: stream.leven_topk(q, db, 20, 5), 3)
                 times["leven top-k plain"] = plain_s * 1e3
-    f_bound = bound_ms(2 * fq * fd * 64 * 18, INT8_OPS_PER_S,
-                       8 * 18 * (fq + fd) + 4 * fq)[0]
+    f_bounds = feature_bounds(fq, fd, 18, 8 * 18 * (fq + fd) + 4 * fq,
+                              b1_peak)
     l_bound = bound_ms(MYERS_OPS * nq * nd * 20, INT32_OPS_PER_S,
                        16 * (nq + nd) + 4 * nq * 5)[0]
     say(f"phase 3c Levenshtein kernels vs plain: feature count exact at "
         f"{fq} x {fd} L=20,27 t=3,4 both directions 4 thresholds; leven "
         f"top-k exact at {nq} x {nd} L=20,27,32 k 1,2,5,64,128; L=20 ms: "
         + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
-        + f"; bounds: feature count {f_bound:.4f} ms (int8), leven top-k "
+        + f"; bounds: feature count {f_bounds['int8'][0]:.4f} ms (int8), "
+        f"{f_bounds['1-bit'][0]:.4f} ms (1-bit), leven top-k "
         f"{l_bound:.4f} ms (INT32)")
+
+
+def phase_feature_edges(fcount, dev):
+    """The 3-gram count kernel against its plain version at its tiling's
+    edges: rows of G words at every k256 step edge (FEATURE_EDGE_WORDS),
+    query blocks (EDGE_NQ), a database ragged against its tiles (EDGE_ND),
+    an all-N query block (zero rows), the thresholds 0, G - 3t - 1, G - 1
+    and G, and both dilation directions (t 3)."""
+    from guidemaker_tpu_torch.knn import stream
+    from guidemaker_tpu_torch.knn.features import (feature_count_plain,
+                                                   gram_rows)
+    rng = np.random.default_rng(99)
+    t, n = 3, 0
+    for glen in FEATURE_EDGE_WORDS:
+        qn, dbn = random_codes(rng, max(EDGE_NQ), EDGE_ND, glen + 2)
+        qn[512:768] = 4
+        qc, dbc = (torch.from_numpy(a).to(dev) for a in (qn, dbn))
+        threshs = sorted({x for x in (0, glen - 3 * t - 1, glen - 1, glen)
+                          if x >= 0})
+        for way, q, db in (("1", gram_rows(qc, 0), gram_rows(dbc, t)),
+                           ("2", gram_rows(qc, t), gram_rows(dbc, 0))):
+            for nq in EDGE_NQ:
+                for thresh in threshs:
+                    fcount.compare(
+                        stream.feature_count(q[:nq], db, glen, thresh),
+                        feature_count_plain(q[:nq], db, thresh),
+                        f"feature count G={glen} direction {way} nq={nq} "
+                        f"thresh={thresh}")
+                    n += 1
+    say(f"phase 3c feature count kernel vs plain at its tiling edges: exact "
+        f"in {n} comparisons, G {FEATURE_EDGE_WORDS}, nq {EDGE_NQ}, nd "
+        f"{EDGE_ND}, an all-N block, thresh 0,G-3t-1,G-1,G (t {t}), both "
+        f"directions")
 
 
 def phase_cruddii(dev):
@@ -1007,7 +1077,7 @@ def phase_leven_design(ltopk, dev, hamming_out, hamming_controls):
                 + 4 * len(sample) * cfg.knum)
 
 
-def phase_leven_tiers(fcount, dev, uniq):
+def phase_leven_tiers(fcount, dev, uniq, b1_peak):
     from guidemaker_tpu_torch.knn import KnnIndex, stream
     from guidemaker_tpu_torch.knn.features import (feature_count_plain,
                                                    gram_rows)
@@ -1051,15 +1121,61 @@ def phase_leven_tiers(fcount, dev, uniq):
     fcount.compare(got, want, "P. aeruginosa tier-1 3-gram count")
     ms = cuda_ms(lambda: stream.feature_count(q, db, 18, 8), 3)
     n = TIER_GUIDES
-    # the JAX kernel's int8 product: 64 lanes a gram position, 18 positions
-    fcount.timed(ms, plain_ms, 2 * n * n * 64 * 18, INT8_OPS_PER_S,
-                 8 * (q.numel() + db.numel()) + 4 * n)
+    bounds = feature_bounds(n, n, 18, 8 * (q.numel() + db.numel()) + 4 * n,
+                            b1_peak)
+    bound, by, kind = least_bound(bounds)
+    fcount.timed_bound(ms, plain_ms, bound, by, bound_kind=kind)
     say(f"phase 10 Levenshtein dist 4 on the first {n} P. aeruginosa guides, "
         f"all against all, on {dev}: {int(mask.sum())} retained == the k=2 "
         f"rule ({t_rule:.3f} s), pass_distance_filter {wall:.3f} s; "
         f"launches: 2-bit {launches[:2]}, feature count {launches[4]}, leven "
         f"top-k {launches[5]}; tier-1 count kernel {ms:.3f} ms "
-        f"({n * n / ms / 1e9:.4f} T pairs/s), plain {plain_ms:.3f} ms")
+        f"({n * n / ms / 1e9:.4f} T pairs/s), plain {plain_ms:.3f} ms; "
+        + bounds_text(bounds, ms))
+    tier1_genome(fcount, dev, uniq, b1_peak)
+
+
+def bounds_text(bounds, ms):
+    """The least of ``bounds`` (feature_bounds) with its share of ``ms``,
+    and the other beside it: the kernel computes the 1-bit product, so the
+    int8 form's bound is no floor to its time."""
+    bound, _, kind = least_bound(bounds)
+    return (f"bound {bound:.4f} ms ({kind}, share {bound / ms:.3f}), "
+            + ", ".join(f"{k} {b:.4f} ms" for k, (b, _) in bounds.items()
+                        if k != kind))
+
+
+def tier1_genome(fcount, dev, uniq, b1_peak):
+    """One timed tier-1 count at genome size: every unique guide's plain
+    3-gram row against every guide's row dilated by t 3, thresh 8 (dist 4),
+    equal to the plain count on a fixed sample of 4,096 queries."""
+    from guidemaker_tpu_torch import dna
+    from guidemaker_tpu_torch.knn import stream
+    from guidemaker_tpu_torch.knn.features import (feature_count_plain,
+                                                   gram_rows)
+    codes = torch.from_numpy(dna.encode_pandas(uniq, 20)[0]).to(dev)
+    q, db = gram_rows(codes, 0), gram_rows(codes, 3)
+    del codes
+    n = q.shape[0]
+    sample = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        n, min(4096, n), replace=False))).to(dev)
+    got = stream.feature_count(q, db, 18, 8)
+    t0 = time.time()
+    want = feature_count_plain(q[sample], db, 8)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    fcount.compare(got[sample], want, "P. aeruginosa genome-size tier-1 "
+                   "count on the 4,096-query sample")
+    ms = cuda_ms(lambda: stream.feature_count(q, db, 18, 8), 2)
+    bounds = feature_bounds(n, n, 18, 8 * (q.numel() + db.numel()) + 4 * n,
+                            b1_peak)
+    fcount.row["ms_genome"] = round(ms, 3)
+    say(f"phase 10 tier-1 count at genome size, {n} x {n} guides (t 3, "
+        f"thresh 8) on {dev}: kernel == plain on {sample.numel()} sampled "
+        f"queries (plain {plain_ms:.3f} ms for the sample); kernel "
+        f"{ms:.3f} ms ({n * n / ms / 1e9:.4f} T pairs/s), "
+        f"{int((got >= 2).sum())} queries ambiguous; "
+        + bounds_text(bounds, ms))
 
 
 def phase_scored_design(topk, dev, hamming_controls, hamming_table):
@@ -1225,28 +1341,78 @@ def tc_kernels(kcaps):
                      f"{prefix}topk_kernel<{k}>" for k in kcaps])
 
 
-#: the tensor-core kernels whose SASS phase 2 reads (every kcap a top-k
-#: kernel is built for), and those that must not spill (the kcaps built for
-#: two blocks an SM, which the main path runs)
-TC_KERNELS = tc_kernels((1, 2, 4, 8, 16, 32, 64, 128))
-NO_SPILL_KERNELS = tc_kernels((1, 2, 4, 8))
+def feature_kernels(steps):
+    """The 3-gram count kernel at each k256 step count of ``steps``."""
+    return tuple(f"feature_count_kernel<{s}>" for s in steps)
+
+
+#: the tensor-core kernels whose SASS phase 2 reads, each with the opcode
+#: it must hold (every kcap a top-k kernel is built for, every step count
+#: of the 3-gram count: 1..8 for 1..30 words), and those that must not
+#: spill (the kcaps built for two blocks an SM, which the main path runs,
+#: and the 3-gram count at S <= 5, guides of <= 22 bases)
+TC_KERNELS = {**{fn: "IMMA" for fn in tc_kernels((1, 2, 4, 8, 16, 32, 64,
+                                                   128))},
+              **{fn: "BMMA" for fn in feature_kernels(range(1, 9))}}
+NO_SPILL_KERNELS = tc_kernels((1, 2, 4, 8)) + feature_kernels(range(1, 6))
+#: the tensor-core rate probe's kernel for each kind (csrc/mma_rate.cu)
+PROBE_KERNELS = {"s8 m16n8k32": "mma_rate_kernel<0>",
+                 "b1 m16n8k256": "mma_rate_kernel<1>"}
+#: the opcodes phase 2 counts: tensor-core products, and the CUDA-core
+#: popcount and dp4a (``IDP.4A``) that a tensor-core kernel must not hold
+SASS_OPS = ("IMMA", "BMMA", "POPC", "IDP")
 
 
 def kernel_sass(lib: str):
-    """{kernel: (IMMA, POPC, IDP4A)} for each of TC_KERNELS, from the SASS
-    of the built library by ``cuobjdump -sass`` from nvcc's toolkit (dp4a
-    is ``IDP.4A`` there)."""
+    """{kernel: {opcode: count}} of SASS_OPS for each of TC_KERNELS and
+    PROBE_KERNELS, from the SASS of the built library by ``cuobjdump
+    -sass`` from nvcc's toolkit.  An opcode is a word up to its first dot,
+    so the ``.POPC`` of ``BMMA.168256.AND.POPC`` is not a POPC."""
     from guidemaker_tpu_torch.knn import build
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    wanted = set(TC_KERNELS) | set(PROBE_KERNELS.values())
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = kernel_name(part.split(None, 1)[0])
-        if fn in TC_KERNELS:
+        if fn in wanted:
             ops = [w.split(".")[0] for w in part.split()]
-            out[fn] = (ops.count("IMMA"), ops.count("POPC"), ops.count("IDP"))
+            out[fn] = {op: ops.count(op) for op in SASS_OPS}
     return out
+
+
+def mma_rates(dev, sass):
+    """{kind: operations a second} of the tensor-core rate probe
+    (csrc/mma_rate.cu), each kind's products counted 2 * 16 * 8 * K, on 4
+    blocks of 8 warps an SM; prints each with its SASS tensor opcodes."""
+    from guidemaker_tpu_torch.knn import build
+    lib = build.library()
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    iters = 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    rates = {}
+    for kind, (name, k) in enumerate((("s8 m16n8k32", 32),
+                                      ("b1 m16n8k256", 256))):
+        def run(kind=kind):
+            err = lib.gm_mma_rate(kind, blocks, iters, out.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"mma_rate kernel {kind}: CUDA error {err}")
+        ms = cuda_ms(run, 5)
+        products = blocks * 8 * iters * 8
+        rates[name] = products * 2 * 16 * 8 * k / (ms * 1e-3)
+        ops = {op: n for op, n in sass.get(PROBE_KERNELS[name], {}).items()
+               if op.endswith("MMA") and n}
+        say(f"  probe {name}: {rates[name] / 1e12:.1f} T operations/s, "
+            f"{products / (ms * 1e-3) / 1e12:.4f} T products/s ({ms:.3f} ms "
+            f"for {products} products), SASS {ops}")
+    ratio = rates["b1 m16n8k256"] / rates["s8 m16n8k32"]
+    say(f"  probe b1/s8: {ratio:.4f} in operations, {ratio * 32 / 256:.4f} "
+        f"in products; 1-bit rate taken as {ratio:.4f} x "
+        f"{INT8_OPS_PER_S / 1e12:,.0f} TOP/s = "
+        f"{ratio * INT8_OPS_PER_S / 1e12:,.0f} T bit operations/s")
+    return rates
 
 
 def main() -> int:
@@ -1276,18 +1442,20 @@ def main() -> int:
         say(f"  ptxas {fn}: {regs} registers, spill stores {st} B, spill "
             f"loads {ld} B")
     sass = kernel_sass(lib)
-    for fn in TC_KERNELS:
-        imma, popc, idp = sass.get(fn, (0, 0, 0))
-        if imma == 0 or popc or idp:
-            raise AssertionError(f"{fn} SASS: {imma} IMMA, {popc} POPC, {idp} "
-                                 f"IDP4A; it must run on the tensor cores")
+    for fn, op in TC_KERNELS.items():
+        ops = sass.get(fn, {})
+        if not ops.get(op) or ops["POPC"] or ops["IDP"]:
+            raise AssertionError(f"{fn} SASS: {ops}; it must run on the "
+                                 f"tensor cores ({op}, no POPC or IDP4A)")
     for fn in NO_SPILL_KERNELS:
         if fn not in ptxas or ptxas[fn][1] or ptxas[fn][2]:
             raise AssertionError(f"{fn}: ptxas reports spills or nothing: "
                                  f"{ptxas.get(fn)}")
     say("  SASS (cuobjdump): " + ", ".join(
-        f"{fn} {sass[fn][0]} IMMA {sass[fn][1]} POPC {sass[fn][2]} IDP4A"
-        for fn in TC_KERNELS))
+        f"{fn} {sass[fn][op]} {op} {sass[fn]['POPC']} POPC "
+        f"{sass[fn]['IDP']} IDP4A" for fn, op in TC_KERNELS.items()))
+    rates = mma_rates(dev, sass)
+    b1_peak = rates["b1 m16n8k256"] / rates["s8 m16n8k32"] * INT8_OPS_PER_S
     count = Kernel("hamming_count",
                    "guidemaker_tpu_torch/csrc/hamming_count.cu",
                    "guidemaker_tpu/knn/pallas_stream.py:164")
@@ -1310,7 +1478,8 @@ def main() -> int:
     phase_edges(count, topk, dev)
     phase_packed_kernels(pcount, ptopk, dev)
     phase_packed_edges(pcount, ptopk, dev)
-    phase_leven_kernels(fcount, ltopk, dev)
+    phase_leven_kernels(fcount, ltopk, dev, b1_peak)
+    phase_feature_edges(fcount, dev)
     phase_cruddii(dev)
     t0 = time.time()
     uniq = pa_guides()
@@ -1320,7 +1489,7 @@ def main() -> int:
     phase_design_packed(pcount, ptopk, dev, hamming_out)
     phase_leven_retention(dev, uniq)
     phase_leven_design(ltopk, dev, hamming_out, hamming_controls)
-    phase_leven_tiers(fcount, dev, uniq)
+    phase_leven_tiers(fcount, dev, uniq, b1_peak)
     phase_scored_design(topk, dev, hamming_controls, hamming_table)
     phase_app(dev)
     say(json.dumps({"kernels": [count.row, topk.row, pcount.row, ptopk.row,

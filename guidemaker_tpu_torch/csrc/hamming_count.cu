@@ -58,7 +58,6 @@ __device__ __forceinline__ void count_block(
     const ulonglong2* __restrict__ db, int lo, int hi, int thresh,
     int* __restrict__ out, uint8_t* tile) {
   const ulonglong2 zero = make_ulonglong2(0ull, 0ull);
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const int qw = blockIdx.x * kQPerBlock + (threadIdx.x >> 5) * 32;
   uint32_t a[kMTiles][KS][4];
   gm::load_a<KS>(a, q, nq, qw);
@@ -86,36 +85,10 @@ __device__ __forceinline__ void count_block(
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][nt][i] = bias;
       gm::mma_batch<KS>(acc, a, src, n0);
-      int all = -1;
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) all &= acc[mt][nt][i];
-      if (all >= 0) {  // some sum is >= 0: count them
-#pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              cnt[mt][i >> 1] += acc[mt][nt][i] >= 0;
-      }
+      gm::count_batch(cnt, acc);
     }
   }
-  // the quad's four threads hold the same rows' counts over other columns
-#pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      int c = cnt[mt][half];
-      c += __shfl_xor_sync(0xffffffffu, c, 1);
-      c += __shfl_xor_sync(0xffffffffu, c, 2);
-      const int qi = qw + mt * 16 + half * 8 + g;
-      if (t == 0 && qi < nq && c != 0) atomicAdd(out + qi, c);
-    }
-  }
+  gm::add_counts(cnt, out, nq, qw);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)

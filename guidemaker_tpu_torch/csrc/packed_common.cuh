@@ -1,7 +1,8 @@
 // Shared pieces of the packed-pair kernels (packed_count.cu,
 // packed_topk.cu) on the int8 tensor cores: the row layout, the split of
-// the product into its even and odd sums, the A fragments, the cp.async
-// tile ring and one warp's product with 16 pair rows.
+// the product into its even and odd sums, the A fragments, the tile loader
+// of mma_common.cuh's cp.async ring and one warp's product with 16 pair
+// rows.
 //
 // Layout (guidemaker_tpu_torch/knn/packed.py).  Each base maps to a vertex
 // of the regular tetrahedron in {-1,+1}^3 (A, C, G, T; N -> 0), so two
@@ -147,24 +148,6 @@ __device__ __forceinline__ void load_pair_a(
   }
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's cp.async groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" : : "n"(N) : "memory");
-}
-
 // Start copying pair rows [t0, t0 + kTile) of the database into the ring
 // buffer at shared address dst: the first 32 * NS bytes of each row, 16
 // bytes a cp.async; rows at or past hi are zero-filled.
@@ -181,7 +164,7 @@ __device__ __forceinline__ void load_pair_tile(uint32_t dst,
     const bool in = t0 + r < hi;
     const int4* src =
         db + (in ? static_cast<size_t>(t0 + r) * kPackedVecs + u : 0);
-    cp_async16(dst + r * (32 * NS + 16) + 16 * u, src, in ? 16 : 0);
+    cp_async<16>(dst + r * (32 * NS + 16) + 16 * u, src, in ? 16 : 0);
   }
 }
 
@@ -213,34 +196,17 @@ __device__ __forceinline__ void pair_mma_batch(
     }
 }
 
-// Every thread of the block walks the split's pair rows [lo, hi) in tiles
-// of kTile through the two-buffer ring at shared address ring, calling
-// batch(src, t0, n0) for each 16-row batch of each tile, src being the
-// lane's ldmatrix address of the current buffer (ldsm_src<NS>).
+// Every thread of the block walks the split's pair rows [lo, hi) through
+// the two-buffer tile ring (tile_ring) at shared address ring, calling
+// batch(src, t0, n0) for each 16-row batch of each tile.
 template <int NS, typename Batch>
 __device__ __forceinline__ void pair_tiles(const int4* __restrict__ db,
                                            int lo, int hi, uint8_t* ring,
                                            Batch&& batch) {
-  constexpr int kBuf = kTile * (32 * NS + 16);
-  const uint32_t base =
-      static_cast<uint32_t>(__cvta_generic_to_shared(ring));
-  const uint32_t src = ldsm_src<NS>(ring);
-  if (lo < hi) load_pair_tile<NS>(base, db, lo, hi);
-  cp_async_commit();
-  int buf = 0;
-  for (int t0 = lo; t0 < hi; t0 += kTile, buf ^= 1) {
-    if (t0 + kTile < hi)
-      load_pair_tile<NS>(base + (buf ^ 1) * kBuf, db, t0 + kTile, hi);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies are done
-    __syncthreads();     // ... and every thread's
-    const int rows = min(kTile, hi - t0);
-#pragma unroll 1
-    for (int n0 = 0; n0 < rows; n0 += kPairBatch)
-      batch(src + buf * kBuf, t0, n0);
-    __syncthreads();  // every warp is done with the buffer refilled next
-  }
-  cp_async_wait<0>();
+  tile_ring<NS, kPairBatch>(
+      lo, hi, ring,
+      [&](uint32_t dst, int t0) { load_pair_tile<NS>(dst, db, t0, hi); },
+      batch);
 }
 
 }  // namespace gm

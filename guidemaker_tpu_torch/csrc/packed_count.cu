@@ -57,7 +57,7 @@ __device__ __forceinline__ void count_block(
     const uint32_t* __restrict__ q, int nq, const int4* __restrict__ db,
     int lo, int hi, int ghi, int three_l, int bias_e, int bias_o,
     int* __restrict__ out, uint8_t* ring) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int t = threadIdx.x & 3;
   const int qw = blockIdx.x * kQPerBlock + (threadIdx.x >> 5) * 32;
   uint32_t ae[kMTiles][gm::even_steps(NS)][4];
   uint32_t ao[kMTiles][gm::odd_steps(NS)][4];
@@ -98,18 +98,7 @@ __device__ __forceinline__ void count_block(
                              (acc_o[mt][nt][i] >= 0 && gi + 1 < ghi);
         }
   });
-  // the quad's four threads hold the same rows' counts over other columns
-#pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      int c = cnt[mt][half];
-      c += __shfl_xor_sync(0xffffffffu, c, 1);
-      c += __shfl_xor_sync(0xffffffffu, c, 2);
-      const int qi = qw + mt * 16 + half * 8 + g;
-      if (t == 0 && qi < nq && c != 0) atomicAdd(out + qi, c);
-    }
-  }
+  gm::add_counts(cnt, out, nq, qw);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)

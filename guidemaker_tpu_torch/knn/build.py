@@ -21,8 +21,11 @@ import threading
 from ..definitions import BUILD_DIR, ROOT_DIR
 
 CSRC_DIR = os.path.join(ROOT_DIR, "csrc")
+#: the kernels, and the tensor-core rate probe (``mma_rate.cu``, which only
+#: chip_smoke.py calls)
 SOURCES = ("hamming_count.cu", "hamming_topk.cu", "packed_count.cu",
-           "packed_topk.cu", "feature_count.cu", "leven_topk.cu")
+           "packed_topk.cu", "feature_count.cu", "leven_topk.cu",
+           "mma_rate.cu")
 HEADERS = ("hamming_common.cuh", "mma_common.cuh", "packed_common.cuh",
            "topk_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -106,5 +109,7 @@ def library() -> ctypes.CDLL:
             lib.gm_feature_count.restype = I
             lib.gm_leven_topk.argtypes = [P, I, P, I, I, I, I, I, P, P, P]
             lib.gm_leven_topk.restype = I
+            lib.gm_mma_rate.argtypes = [I, I, I, P, P]
+            lib.gm_mma_rate.restype = I
             _lib = lib
         return _lib

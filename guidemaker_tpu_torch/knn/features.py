@@ -18,9 +18,10 @@ q-gram lemma makes the count a sound filter: leven(a, b) <= t implies
 
 The plain versions unpack the rows to 0/1 lanes and take a tile-by-tile
 matrix product (float32 on the CPU, bfloat16 on the card), an algorithm
-independent of the kernel's popcounts.  With one side undilated every dot
-is an integer of at most G <= 30, exact in either type; the filter never
-multiplies two dilated rows.
+independent of the kernel's 1-bit AND-popcount product on the tensor
+cores.  With one side undilated every dot is an integer of at most
+G <= 30, exact in either type; the filter never multiplies two dilated
+rows.
 """
 from __future__ import annotations
 
