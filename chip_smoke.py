@@ -89,7 +89,23 @@ Phases, one line each; any failure exits non-zero:
    targets.csv.gz with the score columns, one <accession>.html holding the
    Vega-Lite spec and controls.csv.gz with 10 rows, and the two tables
    are equal byte for byte (the seeded controls differ between CPU and
-   CUDA, so they are not compared).
+   CUDA, so they are not compared);
+13. the sharded backend (``knn/sharded.py``) on virtual shards of the one
+   card, every merge through a world-size-1 NCCL group started by
+   ``init_distributed`` on a free 127.0.0.1 port: dist-2 retention of all
+   unique P. aeruginosa guides on a (1, 4) mesh, the mask and the count
+   vector equal to phase 5's and K1 launched once a shard; phase 6's
+   neighbor lists on a (2, 2) mesh, equal to its keys, K2 launched once a
+   (block, shard); the NCCL ``all_gather`` and ``all_reduce`` times; the
+   Levenshtein dist-3 mask on a (2, 2) mesh equal to phase 8's, the dist-4
+   tiers on phase 10's guides on a (1, 4) mesh equal to its mask (K1'
+   launched), and the Myers top-k of 4,096 sampled guides on the (2, 2)
+   mesh equal to the unsharded kernel's (K6 launched once a (block,
+   shard)); the default design run with GUIDEMAKER_TPU_KERNEL=sharded
+   (``auto_mesh``: 1 x 1 on one card), its targets.csv.gz byte for byte
+   phase 6's, with phase 6's control invariants.  Every launch count is
+   set to 0 just before each of these runs and read just after.  One card
+   measures no multi-card speed.
 
 Phase 3c holds the two Levenshtein kernels against their plain versions:
 the 3-gram count on the rows of random codes with N bases and duplicated
@@ -658,11 +674,12 @@ def phase_retention(count, pcount, dev, uniq, t_host):
     from guidemaker_tpu_torch.knn import KnnIndex, stream
     from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
-    counts = {}
+    counts, masks = {}, {}
     for layout, packed in (("2-bit", False), ("packed", True)):
         idx = KnnIndex(uniq, device=dev, packed=packed)
         t0 = time.time()
-        retained = int(idx.pass_distance_filter(uniq, 2).sum())
+        masks[layout] = idx.pass_distance_filter(uniq, 2)
+        retained = int(masks[layout].sum())
         t_filter = time.time() - t0
         if retained != PA_RETAINED:
             raise AssertionError(f"P. aeruginosa retained {retained} in the "
@@ -701,6 +718,7 @@ def phase_retention(count, pcount, dev, uniq, t_host):
                    "P. aeruginosa packed count == 2-bit count")
     say(f"phase 5 packed count vector == 2-bit count vector; parse+scan "
         f"{t_host:.2f} s")
+    return masks["2-bit"], counts["2-bit"]
 
 
 class StageGrab(logging.Handler):
@@ -724,11 +742,11 @@ def all_counters():
             stream.feature_count_launches, stream.leven_topk_launches)
 
 
-def design_run(dev, packed: bool, extra=()):
+def design_run(dev, packed: bool, extra=(), sharded=False):
     """The default P. aeruginosa design run with --controls 1000 --seed
     SEED (and the flags ``extra``), through the CLI's parser and
     run_pipeline, with every launch count set to 0 just before it and read
-    just after."""
+    just after; ``sharded`` sets GUIDEMAKER_TPU_KERNEL=sharded."""
     from guidemaker_tpu_torch import cli
     from guidemaker_tpu_torch.pipeline import run_pipeline
     out = tempfile.mkdtemp(prefix="gm_smoke_")
@@ -745,6 +763,8 @@ def design_run(dev, packed: bool, extra=()):
         os.environ["GUIDEMAKER_TPU_PACKED"] = "1"
     else:
         os.environ.pop("GUIDEMAKER_TPU_PACKED", None)
+    if sharded:
+        os.environ["GUIDEMAKER_TPU_KERNEL"] = "sharded"
     try:
         for c in counters:
             c.reset()
@@ -755,6 +775,7 @@ def design_run(dev, packed: bool, extra=()):
         launches = [c.n for c in counters]
     finally:
         os.environ.pop("GUIDEMAKER_TPU_PACKED", None)
+        os.environ.pop("GUIDEMAKER_TPU_KERNEL", None)
         timing.removeHandler(grab)
     if res.processor.index.packed != packed:
         raise AssertionError(f"design run index packed="
@@ -905,7 +926,9 @@ def phase_design(count, topk, dev):
         f"{len(idx)} guides (kernel {ms:.3f} ms, plain {plain_ms:.3f} ms); "
         f"{controls}; the same frame again from a second search with the "
         f"same seed ({t_again:.2f} s)")
-    return out, res.controls, df
+    lists = {"seqs": idx.seqs, "queries": idx._encode_queries(need),
+             "keys": want, "k": cfg.knum, "ms": ms, "wall": wall}
+    return out, res.controls, df, lists
 
 
 def phase_design_packed(pcount, ptopk, dev, codes_out):
@@ -999,6 +1022,7 @@ def phase_leven_retention(dev, uniq):
         f"{int(masks[3].sum())} retained (Hamming {int(masks[-3].sum())}), "
         f"a subset of the Hamming mask, == the k=2 rule on {len(sample)} "
         f"sampled queries ({t_rule:.3f} s), {secs[3]:.3f} s")
+    return masks[3], secs[3]
 
 
 def phase_leven_design(ltopk, dev, hamming_out, hamming_controls):
@@ -1133,6 +1157,7 @@ def phase_leven_tiers(fcount, dev, uniq, b1_peak):
         f"({n * n / ms / 1e9:.4f} T pairs/s), plain {plain_ms:.3f} ms; "
         + bounds_text(bounds, ms))
     tier1_genome(fcount, dev, uniq, b1_peak)
+    return mask, wall
 
 
 def bounds_text(bounds, ms):
@@ -1301,6 +1326,190 @@ def phase_app(dev):
         f"targets.csv.gz with the score columns, equal byte for byte "
         f"({tables['cuda'].count(b'\n') - 1} rows); {len(pages)} Vega-Lite "
         f"page(s); 10 controls each")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_run(fn, counters):
+    """``fn()`` with every launch count set to 0 just before it, the card
+    waited for; returns its result, its seconds and the counts after it."""
+    for c in counters:
+        c.reset()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, [c.n for c in counters]
+
+
+def phase_sharded(dev, uniq, ref):
+    """Phase 13: the sharded backend on S virtual shards of the one card,
+    every merge through a world-size-1 NCCL group, against the outputs of
+    phases 5, 6, 8 and 10."""
+    import torch.distributed as tdist
+    from guidemaker_tpu_torch.distributed import (device_summary,
+                                                  init_distributed)
+    from guidemaker_tpu_torch.knn import KnnIndex, sharded, stream
+    from guidemaker_tpu_torch.knn.hamming import host_lists, pack_codes
+    init_distributed(f"127.0.0.1:{free_port()}", num_processes=1,
+                     process_id=0)
+    try:
+        if tdist.get_backend() != "nccl" or tdist.get_world_size() != 1:
+            raise AssertionError(f"process group {tdist.get_backend()} of "
+                                 f"{tdist.get_world_size()}")
+        counters = all_counters()
+
+        def mesh(q, d):
+            return sharded.make_mesh(q, d, [dev] * (q * d))
+
+        # dist-2 retention over every guide, (1, 4)
+        idx = KnnIndex(uniq, device=dev, backend="sharded")
+        idx._mesh = mesh(1, 4)
+        sdb = idx._sharded_db()
+        mask, t_mask, launches = sharded_run(
+            lambda: idx.pass_distance_filter(uniq, 2), counters)
+        if launches != [4, 0, 0, 0, 0, 0]:
+            raise AssertionError(f"sharded retention launches {launches}, "
+                                 f"wanted K1 once on each of 4 shards")
+        if not np.array_equal(mask, ref["mask2"]) or \
+                int(mask.sum()) != PA_RETAINED:
+            raise AssertionError(f"sharded retention: {int(mask.sum())} "
+                                 f"retained, mask != phase 5's")
+        codes = torch.from_numpy(idx._codes).to(dev)
+        got = sharded.fused_sharded_count(codes, sdb, 2)
+        if not torch.equal(got, ref["counts2"]):
+            raise AssertionError("sharded count vector != phase 5's")
+        n = len(idx)
+        ms_count = cuda_ms(lambda: sharded.fused_sharded_count(codes, sdb, 2),
+                           3)
+        bound = bound_ms(hamming_ops(n, n, 20), INT8_OPS_PER_S,
+                         32 * n + 4 * n)[0]
+        say(f"phase 13 {device_summary()}; NCCL group of 1 "
+            f"(127.0.0.1); dist-2 retention on a (1, 4) mesh of {dev}: "
+            f"{int(mask.sum())} of {n} retained, mask == phase 5's, count "
+            f"vector == phase 5's, K1 launched {launches[0]} times; "
+            f"pass_distance_filter {t_mask:.3f} s; sharded count "
+            f"{ms_count:.3f} ms ({n * n / ms_count / 1e9:.4f} T pairs/s, "
+            f"{bound / ms_count:.3f} of the {bound:.2f} ms int8 bound)")
+        del idx, sdb, codes, got
+        # the phase-2 neighbor lists, (2, 2)
+        lists = ref["lists"]
+        idx = KnnIndex(lists["seqs"], device=dev, backend="sharded")
+        idx._mesh = mesh(2, 2)
+        sdb = idx._sharded_db()
+        k, qc = lists["k"], lists["queries"]
+        (d, i), t_lists, launches = sharded_run(
+            lambda: idx.hamming_query_codes(qc, k), counters)
+        want = host_lists(lists["keys"], k)
+        if not (np.array_equal(d, want[0]) and np.array_equal(i, want[1])):
+            raise AssertionError("sharded phase-2 lists != phase 6's")
+        if launches != [0, 4, 0, 0, 0, 0]:
+            raise AssertionError(f"sharded lists launches {launches}, "
+                                 f"wanted K2 on each of 2 x 2 shards")
+        q_dev = torch.from_numpy(qc).to(dev)
+        ms_lists = cuda_ms(
+            lambda: sharded._merge_topk(
+                q_dev, sdb, k, lambda q, rows, kk: stream.hamming_topk(
+                    q, rows, 20, kk), pack_codes), 3)
+        keys = sharded._merge_topk(
+            q_dev, sdb, k,
+            lambda q, rows, kk: stream.hamming_topk(q, rows, 20, kk),
+            pack_codes)
+        parts = [torch.empty_like(keys)]
+        ms_gather = cuda_ms(lambda: tdist.all_gather(parts, keys), 10)
+        counts = torch.zeros(len(uniq), dtype=torch.int32, device=dev)
+        ms_reduce = cuda_ms(lambda: tdist.all_reduce(counts), 10)
+        say(f"phase 13 phase-2 lists on a (2, 2) mesh: {len(qc)} queries x "
+            f"{len(idx)} guides, k {k}, == phase 6's keys; K2 launched "
+            f"{launches[1]} times; {t_lists:.3f} s through the index, "
+            f"{ms_lists:.3f} ms on the card for the keys (unsharded "
+            f"{lists['ms']:.3f} ms in phase 6); NCCL world size 1: "
+            f"all_gather of {tuple(keys.shape)} int32 keys {ms_gather:.4f} "
+            f"ms, all_reduce of {counts.numel()} int32 counts "
+            f"{ms_reduce:.4f} ms")
+        del idx, sdb, q_dev, keys
+        # Levenshtein: dist 3 on every guide (2, 2), dist 4 on the first
+        # TIER_GUIDES (1, 4), and the Myers top-k on a sample (2, 2)
+        lev = KnnIndex(uniq, metric="leven", device=dev, backend="sharded")
+        lev._mesh = mesh(2, 2)
+        mask3, t3, l3 = sharded_run(
+            lambda: lev.pass_distance_filter(uniq, 3), counters)
+        if not np.array_equal(mask3, ref["leven3"][0]):
+            raise AssertionError("sharded Levenshtein dist-3 mask != phase "
+                                 "8's")
+        sub = uniq.iloc[:TIER_GUIDES].reset_index(drop=True)
+        lev4 = KnnIndex(sub, metric="leven", device=dev, backend="sharded")
+        lev4._mesh = mesh(1, 4)
+        mask4, t4, l4 = sharded_run(
+            lambda: lev4.pass_distance_filter(sub, 4), counters)
+        if not np.array_equal(mask4, ref["leven4"][0]):
+            raise AssertionError("sharded Levenshtein dist-4 mask != phase "
+                                 "10's")
+        sample = np.sort(np.random.default_rng(SEED).choice(
+            len(uniq), min(4096, len(uniq)), replace=False))
+        qs = lev._codes[sample]
+        (d, i), t_knn, lk = sharded_run(lambda: lev.query_codes(qs, 5),
+                                        counters)
+        want = host_lists(stream.leven_topk(
+            pack_codes(torch.from_numpy(qs).to(dev)), lev._db, 20, 5), 5)
+        if not (np.array_equal(d, want[0]) and np.array_equal(i, want[1])):
+            raise AssertionError("sharded Levenshtein top-k != unsharded")
+        if l4[4] == 0 or lk[5] != 4 or l3[0] != 4:
+            raise AssertionError(f"sharded Levenshtein launches: dist 3 "
+                                 f"{l3}, dist 4 {l4}, top-k {lk}")
+        say(f"phase 13 Levenshtein on virtual shards: dist 3 (2, 2) "
+            f"{int(mask3.sum())} retained == phase 8's mask, {t3:.3f} s "
+            f"({ref['leven3'][1]:.3f} s unsharded), K1 {l3[0]} launches; "
+            f"dist 4 on {len(sub)} guides (1, 4) {int(mask4.sum())} "
+            f"retained == phase 10's mask, {t4:.3f} s ({ref['leven4'][1]:.3f}"
+            f" s unsharded), launches K1' {l4[4]}, K6 {l4[5]}; Myers top-k "
+            f"k 5 for {len(sample)} sampled guides x {len(lev)} (2, 2) == "
+            f"unsharded, K6 {lk[5]} launches, {t_knn:.3f} s")
+        del lev, lev4
+        # the default design run on the sharded backend (auto_mesh)
+        cfg, out, res, launches, wall, lines = design_run(dev, packed=False,
+                                                          sharded=True)
+        for line in lines:
+            say("  " + line)
+        index = res.processor.index
+        if index.backend != "sharded" or index.packed:
+            raise AssertionError(f"design run index backend {index.backend}"
+                                 f", packed {index.packed}")
+        tables = []
+        for d in (ref["out"], out):
+            with gzip.open(os.path.join(d, "targets.csv.gz"), "rb") as fh:
+                tables.append(fh.read())
+        if tables[0] != tables[1]:
+            raise AssertionError("sharded design run: targets.csv.gz != "
+                                 "phase 6's")
+        if min(launches[:2]) == 0 or max(launches[2:]) != 0:
+            raise AssertionError(f"sharded design run launches {launches}")
+        controls = check_controls(res, out, dev)
+        from guidemaker_tpu_torch.io import parse_genbank
+        again = res.processor.get_control_seqs(
+            parse_genbank(PA_GBK), cfg.config, length=cfg.guidelength,
+            n=cfg.controls, seed=SEED)[2]
+        if not again.equals(res.controls):
+            raise AssertionError("sharded design run: a second control "
+                                 "search with the same seed gave another "
+                                 "frame")
+        say(f"phase 13 P. aeruginosa design run with "
+            f"GUIDEMAKER_TPU_KERNEL=sharded (auto_mesh "
+            f"{index._mesh.devices.shape}) on {dev}: targets.csv.gz == "
+            f"phase 6's ({len(tables[1])} bytes), {wall:.2f} s wall "
+            f"(phase 6: {lists['wall']:.2f} s), controls stage "
+            f"{stage_seconds(lines, 'controls')} s, "
+            f"{res.processor.ncontrolsearched} candidates searched (whole "
+            f"rungs); launches: count {launches[0]}, top-k {launches[1]}; "
+            f"{controls}; controls frame == phase 6's: "
+            f"{res.controls.equals(ref['controls'])}; the same frame again "
+            f"from a second search with the same seed")
+    finally:
+        tdist.destroy_process_group()
 
 
 def kernel_name(mangled: str) -> str:
@@ -1483,15 +1692,20 @@ def main() -> int:
     phase_cruddii(dev)
     t0 = time.time()
     uniq = pa_guides()
-    phase_retention(count, pcount, dev, uniq, time.time() - t0)
-    hamming_out, hamming_controls, hamming_table = phase_design(count, topk,
-                                                               dev)
+    mask2, counts2 = phase_retention(count, pcount, dev, uniq,
+                                     time.time() - t0)
+    hamming_out, hamming_controls, hamming_table, lists = phase_design(
+        count, topk, dev)
     phase_design_packed(pcount, ptopk, dev, hamming_out)
-    phase_leven_retention(dev, uniq)
+    leven3 = phase_leven_retention(dev, uniq)
     phase_leven_design(ltopk, dev, hamming_out, hamming_controls)
-    phase_leven_tiers(fcount, dev, uniq, b1_peak)
+    leven4 = phase_leven_tiers(fcount, dev, uniq, b1_peak)
     phase_scored_design(topk, dev, hamming_controls, hamming_table)
     phase_app(dev)
+    phase_sharded(dev, uniq, {"mask2": mask2, "counts2": counts2,
+                              "lists": lists, "out": hamming_out,
+                              "controls": hamming_controls, "leven3": leven3,
+                              "leven4": leven4})
     say(json.dumps({"kernels": [count.row, topk.row, pcount.row, ptopk.row,
                                 fcount.row, ltopk.row]}))
     print(json.dumps({"ok": True, "device": {

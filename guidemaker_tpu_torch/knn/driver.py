@@ -1,5 +1,5 @@
 """Exact k-NN index over guide sequences (Hamming or Levenshtein), on one
-torch device.
+torch device or sharded over several.
 
 The database is a code matrix, packed once into ``(n, 2)`` int64 rows that
 stay resident on the index's device, whatever the metric.  On a CUDA device
@@ -15,6 +15,15 @@ is an opt-in, as in the JAX package: ``packed=True``, or
 bases.  It gives the same answers through its own two kernels.  It is
 used only for N-free data: a database with an N keeps the 2-bit layout,
 and a call whose queries hold an N takes the 2-bit kernels (the N gate).
+
+The sharded backend (:mod:`.sharded`, as the JAX package's) splits the
+database over a (q, d) mesh of devices and merges the shards' answers by
+packed key, so its answers equal the single-device ones.  It is chosen by
+``backend="sharded"``, by ``GUIDEMAKER_TPU_KERNEL=sharded``, or by a
+``device`` of ``None`` or ``"cuda"`` when more than one card is visible;
+its mesh is :func:`..distributed.auto_mesh` on a card, one shard on the
+CPU, or whatever is put into ``_mesh`` before the first call.  It keeps the
+2-bit layout.
 """
 from __future__ import annotations
 
@@ -30,12 +39,15 @@ from .. import dna
 from ..util import resolve_device
 from . import packed as pk
 from . import stream
-from .hamming import MAX_LEN, pack_codes, unpack_keys
+from .hamming import MAX_LEN, host_lists, pack_codes
 from .leven import leven_pass_filter
+from .sharded import (ShardedDb, fused_sharded_count, fused_sharded_topk,
+                      prepare_db_sharded, sharded_leven_topk)
 
 logger = logging.getLogger(__name__)
 
 #: backend names in an index saved by either package -> the port's device
+#: (``sharded`` runs on either; its default is the card)
 _SAVED_BACKENDS = {"pallas": "cuda", "sharded": "cuda", "cuda": "cuda",
                    "xla": "cpu", "native": "cpu", "cpu": "cpu"}
 
@@ -51,23 +63,29 @@ def use_packed(length: int) -> bool:
             and bool(os.environ.get("GUIDEMAKER_TPU_PACKED")))
 
 
-def _device_for(device, backend):
-    """The index's device from the port's ``device`` and a JAX ``backend``
-    name (mapped through ``_SAVED_BACKENDS``); the card when neither is
-    given.  Raises ``ValueError`` on an unknown backend or when the two
-    name different device types."""
+def _placement(device, backend):
+    """(device, sharded) of an index from the port's ``device`` and a JAX
+    ``backend`` name (mapped through ``_SAVED_BACKENDS``); the card when
+    neither is given.  Without ``backend``, the index is sharded when
+    ``GUIDEMAKER_TPU_KERNEL`` is ``sharded``, or when ``device`` names no
+    one card and more than one is visible.  Raises ``ValueError`` on an
+    unknown backend or when the two name different device types."""
     if backend is None:
-        return resolve_device("cuda" if device is None else device)
+        dev = resolve_device("cuda" if device is None else device)
+        return dev, (os.environ.get("GUIDEMAKER_TPU_KERNEL") == "sharded"
+                     or (dev.type == "cuda" and dev.index is None
+                         and torch.cuda.device_count() > 1))
     if backend not in _SAVED_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: "
                          f"{sorted(_SAVED_BACKENDS)}")
     mapped = _SAVED_BACKENDS[backend]
-    if device is None:
-        return resolve_device(mapped)
+    if backend == "sharded" or device is None:
+        return resolve_device(mapped if device is None else device), \
+            backend == "sharded"
     if torch.device(device).type != mapped:
         raise ValueError(f"backend {backend!r} runs on {mapped}, but device "
                          f"{device!r} was given")
-    return resolve_device(device)
+    return resolve_device(device), False
 
 
 class KnnIndex:
@@ -75,12 +93,14 @@ class KnnIndex:
 
     ``metric`` is ``"hamming"`` or ``"leven"`` (Levenshtein).  ``device``
     defaults to ``"cuda"``; ``backend`` takes the JAX package's backend
-    names instead (``pallas``/``sharded`` -> cuda, ``xla``/``native`` ->
-    cpu) and must agree with ``device`` when both are given.
+    names instead (``pallas`` -> cuda, ``xla``/``native`` -> cpu,
+    ``sharded`` -> the sharded backend, on the card unless ``device`` is
+    the CPU) and must agree with ``device`` when both are given.
     ``num_threads`` (the JAX native engine's) is accepted and ignored.
     ``packed`` selects the packed-pair layout of the Hamming calls
     (``None``: read ``GUIDEMAKER_TPU_PACKED``, as the JAX package does);
-    ``True`` with guides longer than 21 bases raises.
+    ``True`` with guides longer than 21 bases raises.  ``backend`` holds
+    ``"sharded"``, ``"cuda"`` or ``"cpu"``.
     """
 
     def __init__(self, seqs, metric: str = "hamming", device=None,
@@ -91,7 +111,8 @@ class KnnIndex:
             raise ValueError(f"metric must be 'hamming' or 'leven', got "
                              f"{metric!r}")
         self.metric = metric
-        self.device = _device_for(device, backend)
+        self.device, sharded = _placement(device, backend)
+        self.backend = "sharded" if sharded else self.device.type
         if isinstance(seqs, (list, tuple)):
             self._seqs_list: List[str] = list(seqs)
             self._seq_arr = None     # Arrow form built lazily on demand
@@ -120,12 +141,18 @@ class KnnIndex:
         elif packed and self.length > pk.MAX_PACKED_LEN:
             raise ValueError(f"the packed layout holds guides of at most "
                              f"{pk.MAX_PACKED_LEN} bases (got {self.length})")
-        #: the packed-pair layout is in use (opted in, database N-free)
-        self.packed = bool(packed) and int(self._codes.max(initial=0)) < 4
+        #: the packed-pair layout is in use (opted in, database N-free, not
+        #: sharded)
+        self.packed = (bool(packed) and int(self._codes.max(initial=0)) < 4
+                       and not sharded)
         if packed and not self.packed:
-            logger.info("packed layout off for this index: the database "
-                        "holds N bases, which only the 2-bit kernels match")
+            logger.info("packed layout off for this index: %s",
+                        "the sharded backend keeps the 2-bit layout"
+                        if sharded else "the database holds N bases, which "
+                        "only the 2-bit kernels match")
         self._db_packed = None    # (ceil(n/2), 128) int8, built on first use
+        self._mesh = None         # the sharded backend's mesh, lazy
+        self._sdb = None          # its ShardedDb, built on first use
         self._logged_query_n = False
         # the control search's thread calls the index beside the main one
         self._lock = threading.Lock()
@@ -141,6 +168,21 @@ class KnnIndex:
                     self._db_packed = pk.db_rows(
                         torch.from_numpy(self._codes).to(self.device))
         return self._db_packed
+
+    def _sharded_db(self) -> ShardedDb:
+        """The sharded backend's database, built once over ``_mesh``
+        (:func:`..distributed.auto_mesh` on a card, one shard on the CPU,
+        unless set before)."""
+        if self._sdb is None:
+            with self._lock:
+                if self._sdb is None:
+                    if self._mesh is None:
+                        from ..distributed import auto_mesh
+                        self._mesh = auto_mesh(
+                            devices=None if self.device.type == "cuda"
+                            else [self.device])
+                    self._sdb = prepare_db_sharded(self._codes, self._mesh)
+        return self._sdb
 
     def _packed_for(self, q: torch.Tensor) -> bool:
         """The N gate: does a call on these (nq, L) codes take the packed
@@ -166,12 +208,16 @@ class KnnIndex:
     def _count(self, q: torch.Tensor, editdist: int) -> torch.Tensor:
         """(nq,) int32 counts, on the device, of database guides at Hamming
         distance < ``editdist`` from each of the (nq, L) codes ``q``, in
-        launches of at most ``_COUNT_CHUNK`` queries."""
+        launches of at most ``_COUNT_CHUNK`` queries (on the sharded
+        backend, on its mesh's first device)."""
         packed = self._packed_for(q)
         parts = []
         for lo in range(0, max(q.shape[0], 1), _COUNT_CHUNK):
             part = q[lo:lo + _COUNT_CHUNK]
-            if packed:
+            if self.backend == "sharded":
+                parts.append(fused_sharded_count(part, self._sharded_db(),
+                                                 editdist))
+            elif packed:
                 parts.append(stream.packed_count(
                     pk.query_rows(part), self._packed_db(), self._n,
                     self.length, editdist))
@@ -265,9 +311,12 @@ class KnnIndex:
             return self.hamming_query_codes(qc, k)
         if qc.shape[0] == 0:
             return (np.empty((0, k), np.int32), np.empty((0, k), np.int32))
+        if self.backend == "sharded":
+            sdb = self._sharded_db()
+            return sharded_leven_topk(qc, sdb, k, mesh=sdb.mesh)
         keys = stream.leven_topk(pack_codes(self._as_codes(qc)), self._db,
                                  self.length, k)
-        return _host_lists(keys, k)
+        return host_lists(keys, k)
 
     def hamming_query_codes(self, qc: np.ndarray,
                             k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -275,6 +324,8 @@ class KnnIndex:
         metric (the control search's rule is Hamming by definition)."""
         if qc.shape[0] == 0:
             return (np.empty((0, k), np.int32), np.empty((0, k), np.int32))
+        if self.backend == "sharded":
+            return fused_sharded_topk(qc, self._sharded_db(), k)
         q = self._as_codes(qc)
         if self._packed_for(q):
             keys = stream.packed_topk(pk.query_rows(q), self._packed_db(),
@@ -282,7 +333,7 @@ class KnnIndex:
         else:
             keys = stream.hamming_topk(pack_codes(q), self._db, self.length,
                                        k)
-        return _host_lists(keys, k)
+        return host_lists(keys, k)
 
     def pass_distance_filter(self, seqs: Sequence[str],
                              editdist: int) -> np.ndarray:
@@ -307,7 +358,12 @@ class KnnIndex:
                 db = self._as_codes(self._codes)
                 q = db if all_vs_all else self._as_codes(
                     self._encode_queries(seqs))
-                return leven_pass_filter(q, db, editdist).cpu().numpy()
+                if self.backend == "sharded":
+                    passed = leven_pass_filter(q, db, editdist,
+                                               mesh=self._sharded_db().mesh)
+                else:
+                    passed = leven_pass_filter(q, db, editdist)
+                return passed.cpu().numpy()
             # all-vs-all: no re-encoding
             qc = self._codes if all_vs_all else self._encode_queries(seqs)
             counts = self._count(self._as_codes(qc), editdist)
@@ -346,11 +402,12 @@ class KnnIndex:
         return (counts == 0).to(torch.uint8).cpu().numpy()
 
     def supports_chunk_triage(self, editdist: int) -> bool:
-        """True iff :meth:`pass_mask_chunks` runs: the 2-bit layout and a
-        countable ``editdist``.  The control ladder picks its path once
-        with it; the packed layout takes the monolithic rung, as in the
-        JAX package."""
-        return not self.packed and editdist <= self.length
+        """True iff :meth:`pass_mask_chunks` runs: the 2-bit layout on one
+        device and a countable ``editdist``.  The control ladder picks its
+        path once with it; the packed layout and the sharded backend take
+        the monolithic rung, as in the JAX package."""
+        return (self.backend != "sharded" and not self.packed
+                and editdist <= self.length)
 
     def pass_mask_chunks(self, chunks, editdist: int):
         """:meth:`pass_mask_within` over a list of device candidate chunks,
@@ -372,17 +429,19 @@ class KnnIndex:
         """Save the index to an .npz file (codes + metric + backend)."""
         np.savez_compressed(path, codes=self._codes,
                             metric=np.str_(self.metric),
-                            backend=np.str_(self.device.type))
+                            backend=np.str_(self.backend))
 
     @classmethod
     def load(cls, path: str, device=None, backend: str = None) -> "KnnIndex":
         """Load an index saved by either package.  Without ``device`` or
         ``backend``, the saved backend name maps to the port's device:
-        ``pallas`` and ``sharded`` (TPU kernels) to ``cuda``, ``xla`` and
-        ``native`` (portable and CPU engines) to ``cpu``.  ``backend``
-        maps the same way and must agree with ``device``."""
+        ``pallas`` (TPU kernels) to ``cuda``, ``xla`` and ``native``
+        (portable and CPU engines) to ``cpu``.  A saved ``sharded`` loads
+        onto the sharded backend, on ``device`` if given, else the card.
+        ``backend`` maps the same way and must agree with ``device``."""
         z = np.load(path)
-        if device is None and backend is None:
+        if backend is None and (device is None
+                                or str(z["backend"]) == "sharded"):
             backend = str(z["backend"])
         return cls(dna.decode_rows(z["codes"]), metric=str(z["metric"]),
                    device=device, backend=backend)
@@ -396,13 +455,3 @@ def knn_search(db_seqs: Sequence[str], q_seqs: Sequence[str], k: int,
     :meth:`KnnIndex.query`."""
     return KnnIndex(db_seqs, metric, device=device).query(q_seqs, k)
 
-
-def _host_lists(keys: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Packed keys -> host (dist, idx), each (nq, k) int32, -1 beyond the
-    keys' width."""
-    dist, idx = (t.cpu().numpy() for t in unpack_keys(keys))
-    if dist.shape[1] < k:
-        pad = np.full((dist.shape[0], k - dist.shape[1]), -1, dtype=np.int32)
-        dist = np.concatenate([dist, pad], axis=1)
-        idx = np.concatenate([idx, pad], axis=1)
-    return dist, idx

@@ -22,6 +22,9 @@ and ``chip_smoke.py`` hold the kernels against them.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 #: bits reserved for the database index inside the packed int32 key.
@@ -50,6 +53,17 @@ def unpack_keys(keys: torch.Tensor):
     invalid = keys >= INF_KEY
     dist = torch.where(invalid, -1, keys >> IDX_BITS).to(torch.int32)
     idx = torch.where(invalid, -1, keys & IDX_MASK).to(torch.int32)
+    return dist, idx
+
+
+def host_lists(keys: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Packed keys -> host (dist, idx), each (nq, k) int32, -1 beyond the
+    keys' width."""
+    dist, idx = (t.cpu().numpy() for t in unpack_keys(keys))
+    if dist.shape[1] < k:
+        pad = np.full((dist.shape[0], k - dist.shape[1]), -1, dtype=np.int32)
+        dist = np.concatenate([dist, pad], axis=1)
+        idx = np.concatenate([idx, pad], axis=1)
     return dist, idx
 
 

@@ -19,6 +19,11 @@ that has cheaper exact answers than a top-k (:func:`leven_pass_filter`):
   exact, in tiers: the gram count; banded-DP verification of each
   ambiguous query's top candidates; the count in the other direction; the
   exact Myers k=2 top-k for what is left.
+
+Given a ``mesh``, every tier runs over it (:mod:`.sharded`), as in the JAX
+package: the counts and the Myers top-k on database shards, each shard's
+3-gram rows built on its own device, the extraction merged by key, and the
+banded verification split by row.  The deletion join stays on one device.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import logging
 import torch
 
 from ..util import substage_timer
-from . import stream
+from . import sharded, stream
 from .dp import banded_leven_pairs
 from .features import GRAM_Q, feature_topk, gram_rows
 from .hamming import IDX_MASK, pack_codes, unpack_keys
@@ -110,37 +115,60 @@ def match_rows(q_codes: torch.Tensor, db_codes: torch.Tensor) -> torch.Tensor:
 
 
 def _close_neighbors(q_codes: torch.Tensor, q_feat: torch.Tensor,
-                     db_codes: torch.Tensor, db_feat: torch.Tensor,
-                     k_eff: int, t: int) -> torch.Tensor:
+                     db_codes: torch.Tensor, db_feat, k_eff: int, t: int,
+                     mesh=None) -> torch.Tensor:
     """(m,) bool: does each query have a neighbor other than itself at
     Levenshtein distance <= ``t`` among its ``k_eff`` candidates of
     smallest filter pseudo-distance?  Exhaustive, hence exact, for a query
-    whose filter count is at most ``k_eff``."""
+    whose filter count is at most ``k_eff``.  With a ``mesh``, ``db_feat``
+    is sharded over it, and so is the work."""
     glen = q_feat.shape[1]
     out = []
     for lo in range(0, q_codes.shape[0], _VERIFY_CHUNK):
         qc = q_codes[lo:lo + _VERIFY_CHUNK]
+        qf = q_feat[lo:lo + _VERIFY_CHUNK]
         with substage_timer(f"leven tier: extraction m={qc.shape[0]} "
                             f"k={k_eff}", q_codes.device):
-            cand = feature_topk(q_feat[lo:lo + _VERIFY_CHUNK], db_feat,
-                                glen, k_eff) & IDX_MASK
+            if mesh is None:
+                cand = feature_topk(qf, db_feat, glen, k_eff) & IDX_MASK
+            else:
+                cand = sharded.sharded_feature_topk(
+                    qf, db_feat, glen, k_eff, mesh=mesh).to(
+                        qc.device) & IDX_MASK
         with substage_timer(f"leven tier: banded pairs "
                             f"n={cand.numel()}", q_codes.device):
-            dist = banded_leven_pairs(
-                qc.repeat_interleave(k_eff, dim=0),
-                db_codes[cand.reshape(-1).long()], t).reshape(cand.shape)
+            qa = qc.repeat_interleave(k_eff, dim=0)
+            ca = db_codes[cand.reshape(-1).long()]
+            if mesh is None:
+                dist = banded_leven_pairs(qa, ca, t)
+            else:
+                dist = sharded.sharded_banded_pairs(qa, ca, t=t,
+                                                    mesh=mesh).to(qc.device)
+            dist = dist.reshape(cand.shape)
             # distance 0 is the query itself (deduplicated database)
             out.append(((dist > 0) & (dist <= t)).any(dim=1))
     return torch.cat(out)
 
 
+def _second_dist(q_codes: torch.Tensor, db_codes: torch.Tensor,
+                 mesh) -> torch.Tensor:
+    """(nq,) int32 Levenshtein distance of each query's second-nearest
+    database guide, by the exact k=2 top-k, on the queries' device."""
+    if mesh is None:
+        return unpack_keys(leven_topk(q_codes, db_codes, 2))[0][:, 1]
+    dist, _ = sharded.sharded_leven_topk(q_codes, db_codes, 2, mesh=mesh)
+    return torch.from_numpy(dist[:, 1]).to(q_codes.device)
+
+
 def leven_pass_filter(q_codes: torch.Tensor, db_codes: torch.Tensor,
-                      editdist: int, *,
-                      filter_k: int = _FILTER_K) -> torch.Tensor:
+                      editdist: int, *, filter_k: int = _FILTER_K,
+                      mesh=None) -> torch.Tensor:
     """(nq,) bool, on the codes' device: is each query's second-nearest
     Levenshtein neighbor at distance >= ``editdist``?  Requires the
     counting preconditions (a deduplicated database of which every query is
-    a member); pass the same tensor for an all-vs-all run."""
+    a member); pass the same tensor for an all-vs-all run.  With a
+    :class:`.sharded.Mesh`, every tier but the deletion join runs over
+    it."""
     nq, length = q_codes.shape
     dev = q_codes.device
     e = int(editdist)
@@ -149,31 +177,43 @@ def leven_pass_filter(q_codes: torch.Tensor, db_codes: torch.Tensor,
         # so everything passes; e == 0 is vacuous, as in the reference
         return torch.ones(nq, dtype=torch.bool, device=dev)
     same = q_codes is db_codes
-    db_rows = pack_codes(db_codes)
-    q_rows = db_rows if same else pack_codes(q_codes)
-    if e == 2:
-        return stream.hamming_count(q_rows, db_rows, length, 2) <= 1
-    if e == 3:
+    if e in (2, 3):
+        if mesh is None:
+            db_rows = pack_codes(db_codes)
+            q_rows = db_rows if same else pack_codes(q_codes)
+            counts = stream.hamming_count(q_rows, db_rows, length, e)
+        else:
+            counts = sharded.fused_sharded_count(
+                q_codes, sharded.prepare_db_sharded(db_codes, mesh),
+                e).to(dev)
+        if e == 2:
+            return counts <= 1
         with substage_timer("leven e=3: deletion join", dev):
             partner = delset_partner_mask(db_codes)
             if not same:
                 partner = partner[match_rows(q_codes, db_codes)]
-        counts = stream.hamming_count(q_rows, db_rows, length, 3)
         return (counts <= 1) & ~partner
     t = e - 1
     glen = length - GRAM_Q + 1
     p_edit = t * GRAM_Q + 1
     if glen - t * GRAM_Q < 2 or p_edit > glen:
         # the gram bound is void on guides this short: exact k=2 for all
-        dist = unpack_keys(leven_topk(q_codes, db_codes, 2))[0]
-        return dist[:, 1] >= e
+        return _second_dist(q_codes, db_codes, mesh) >= e
     # a candidate pair has pseudo-distance glen - dot < p_edit
     thresh = glen - p_edit
     k_eff = min(filter_k, db_codes.shape[0])
+    if mesh is not None:
+        # each shard builds its 3-gram rows from its codes, on its device
+        db_sh = sharded.shard_rows(db_codes, mesh)
     with substage_timer(f"leven tier 1: gram rows and count n={nq}", dev):
-        db_feat = gram_rows(db_codes, t)
         q_feat = gram_rows(q_codes, 0)
-        counts = stream.feature_count(q_feat, db_feat, glen, thresh)
+        if mesh is None:
+            db_feat = gram_rows(db_codes, t)
+            counts = stream.feature_count(q_feat, db_feat, glen, thresh)
+        else:
+            db_feat = db_sh.map(lambda c: gram_rows(c, t))
+            counts = sharded.sharded_feature_count(
+                q_feat, db_feat, glen, thresh, mesh=mesh).to(dev)
         passed = counts <= 1
         todo = torch.nonzero(counts >= 2).squeeze(1)
     logger.debug("leven filter: %d queries, %d ambiguous after the gram "
@@ -184,7 +224,7 @@ def leven_pass_filter(q_codes: torch.Tensor, db_codes: torch.Tensor,
     # when the count fits it; a proven close neighbor decides FAIL even
     # when it does not
     close = _close_neighbors(q_codes[todo], q_feat[todo], db_codes, db_feat,
-                             k_eff, t)
+                             k_eff, t, mesh)
     complete = counts[todo] <= k_eff
     passed[todo] = complete & ~close
     rest = todo[~complete & ~close]
@@ -196,16 +236,21 @@ def leven_pass_filter(q_codes: torch.Tensor, db_codes: torch.Tensor,
     # query rows dilated and database rows plain: a true close pair is
     # counted both ways, so a count <= 1 proves PASS
     with substage_timer(f"leven tier 3: count n={rest.numel()}", dev):
-        db_plain = gram_rows(db_codes, 0)
         q_dil = gram_rows(q_codes[rest], t)
-        counts2 = stream.feature_count(q_dil, db_plain, glen, thresh)
+        if mesh is None:
+            db_plain = gram_rows(db_codes, 0)
+            counts2 = stream.feature_count(q_dil, db_plain, glen, thresh)
+        else:
+            db_plain = db_sh.map(lambda c: gram_rows(c, 0))
+            counts2 = sharded.sharded_feature_count(
+                q_dil, db_plain, glen, thresh, mesh=mesh).to(dev)
         passed[rest[counts2 <= 1]] = True
         sel = torch.nonzero(counts2 >= 2).squeeze(1)
     if sel.numel() == 0:
         return passed
     rest2 = rest[sel]
     close = _close_neighbors(q_codes[rest2], q_dil[sel], db_codes, db_plain,
-                             k_eff, t)
+                             k_eff, t, mesh)
     complete = counts2[sel] <= k_eff
     passed[rest2] = complete & ~close
     over = rest2[~complete & ~close]
@@ -215,6 +260,5 @@ def leven_pass_filter(q_codes: torch.Tensor, db_codes: torch.Tensor,
         # tier 4: exact k=2 for the residue, ambiguous both ways
         with substage_timer(f"leven tier 4: k=2 top-k n={over.numel()}",
                             dev):
-            dist = unpack_keys(leven_topk(q_codes[over], db_codes, 2))[0]
-            passed[over] = dist[:, 1] >= e
+            passed[over] = _second_dist(q_codes[over], db_codes, mesh) >= e
     return passed
