@@ -105,7 +105,24 @@ Phases, one line each; any failure exits non-zero:
    (``auto_mesh``: 1 x 1 on one card), its targets.csv.gz byte for byte
    phase 6's, with phase 6's control invariants.  Every launch count is
    set to 0 just before each of these runs and read just after.  One card
-   measures no multi-card speed.
+   measures no multi-card speed;
+14. two processes on the one card: the script starts itself twice as a
+   worker (``--rank R PORT``), with LOCAL_RANK 0 and 1 and
+   LOCAL_WORLD_SIZE 2, so that ``local_devices`` gives both ``cuda:0``.
+   Each starts a gloo group of 2 on a free 127.0.0.1 port (NCCL refuses
+   two ranks on one card), so ``init_distributed`` is then a no-op, and
+   runs phase 6's design run with no GUIDEMAKER_TPU_KERNEL: the group
+   alone shards the index over the ranks.  Rank 0's targets.csv.gz equals
+   phase 6's byte for byte, rank 1 writes nothing, both ranks return the
+   same table and controls, the controls equal phase 13's sharded design
+   run's and hold phase 6's invariants, K1 and K2 launch on each rank
+   (launch counts set to 0 just before the run and read just after), and
+   both ranks record the same ``all_gather``/``all_reduce``/``broadcast``
+   calls, none begun while another was in flight; then an unseeded
+   C. ruddii design run gives equal controls on both ranks.  Each rank's
+   wall, stage table and gloo collectives' count and ms are printed: two
+   processes sharing one card, not a scaling figure.  A rank that fails
+   or outlasts 300 s fails the phase.
 
 Phase 3c holds the two Levenshtein kernels against their plain versions:
 the 3-gram count on the rows of random codes with N bases and duplicated
@@ -1508,8 +1525,186 @@ def phase_sharded(dev, uniq, ref):
             f"{controls}; controls frame == phase 6's: "
             f"{res.controls.equals(ref['controls'])}; the same frame again "
             f"from a second search with the same seed")
+        return res.controls
     finally:
         tdist.destroy_process_group()
+
+
+#: phase 14's ranks, and each one's limit in seconds
+RANKS = 2
+RANK_TIMEOUT = 300
+
+
+class CollectiveLog:
+    """Wraps ``torch.distributed``'s ``all_gather``, ``all_reduce`` and
+    ``broadcast``: each call's (op, shape) and host ms, and how many calls
+    started while another of this process was in flight."""
+
+    OPS = ("all_gather", "all_reduce", "broadcast")
+
+    def __init__(self, tdist):
+        import threading
+        self.calls, self.ms, self.overlaps = [], 0.0, 0
+        self._in_flight, self._lock = 0, threading.Lock()
+        for name in self.OPS:
+            setattr(tdist, name, self._wrap(name, getattr(tdist, name)))
+
+    def _wrap(self, name, real):
+        def call(*args, **kwargs):
+            tensor = args[1] if name == "all_gather" else args[0]
+            with self._lock:
+                self.overlaps += self._in_flight > 0
+                self._in_flight += 1
+                self.calls.append([name, list(tensor.shape)])
+            t0 = time.time()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self._in_flight -= 1
+                    self.ms += (time.time() - t0) * 1e3
+        return call
+
+    def take(self):
+        """{"calls", "ms", "overlaps"} since the last take; then resets."""
+        with self._lock:
+            out = {"calls": self.calls, "ms": self.ms,
+                   "overlaps": self.overlaps}
+            self.calls, self.ms, self.overlaps = [], 0.0, 0
+        return out
+
+
+def rank_worker(rank: int, port: int) -> int:
+    """Phase 14's worker: rank ``rank`` of a gloo group of RANKS on
+    127.0.0.1:``port``, on the card that ``local_devices`` gives it under
+    the LOCAL_RANK and LOCAL_WORLD_SIZE its parent set.  It runs phase 6's
+    design run (no GUIDEMAKER_TPU_KERNEL: the group shards the index), then
+    the C. ruddii design run unseeded, and prints one ``RESULT`` line."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as tdist
+    from guidemaker_tpu_torch import cli
+    from guidemaker_tpu_torch.distributed import (init_distributed,
+                                                  local_devices)
+    from guidemaker_tpu_torch.pipeline import run_pipeline
+    dev = local_devices()[0]
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=RANKS, rank=rank)
+    init_distributed(f"127.0.0.1:{port}", num_processes=RANKS,
+                     process_id=rank)     # a no-op: the group is up
+    log = CollectiveLog(tdist)
+    try:
+        cfg, out, res, launches, wall, lines = design_run(dev, packed=False)
+        pa_log = log.take()
+        index = res.processor.index
+        result = {
+            "rank": rank, "device": str(dev), "backend": index.backend,
+            "mesh": list(index._mesh.devices.shape), "wall": wall,
+            "stages": lines, "launches": launches, "log": pa_log,
+            "out": out, "controls": res.controls.to_csv(),
+            "table_sha": hashlib.sha256(res.targets.to_csv(
+                index=False).encode()).hexdigest(),
+            "searched": res.processor.ncontrolsearched,
+            "check": check_controls(res, out, dev) if rank == 0 else None}
+        cr_out = tempfile.mkdtemp(prefix="gm_smoke_cr_")
+        cr = run_pipeline(cli.config_from_args(cli.myparser().parse_args(
+            ["--genbank", CR_GBK, "--pamseq", "NGG", "--outdir", cr_out])))
+        torch.cuda.synchronize()
+        result.update(cr_controls=cr.controls.to_csv(), cr_log=log.take(),
+                      cr_out=cr_out)
+    finally:
+        tdist.destroy_process_group()
+    print("RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def phase_two_ranks(ref):
+    """Phase 14: RANKS processes of one gloo group on the one card (each
+    started by this script, LOCAL_RANK r of LOCAL_WORLD_SIZE RANKS), each
+    running phase 6's design run with the index sharded over the group."""
+    import pandas as pd
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GUIDEMAKER_TPU_KERNEL", "GUIDEMAKER_TPU_PACKED")}
+    env["LOCAL_WORLD_SIZE"] = str(RANKS)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         str(port)], env=dict(env, LOCAL_RANK=str(r)), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(RANKS)]
+    deadline = time.time() + RANK_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.time())))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 14: a rank did not finish in "
+                             f"{RANK_TIMEOUT} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        line = [x for x in out.splitlines() if x.startswith("RESULT ")]
+        if p.returncode != 0 or len(line) != 1:
+            raise AssertionError(f"phase 14 rank {r} failed (exit "
+                                 f"{p.returncode}):\n{err[-4000:]}")
+        ranks.append(json.loads(line[0][len("RESULT "):]))
+    first, other = ranks[0], ranks[1:]
+    tables = []
+    for d in (ref["out"], first["out"]):
+        with gzip.open(os.path.join(d, "targets.csv.gz"), "rb") as fh:
+            tables.append(fh.read())
+    checks = {
+        "rank 0's targets.csv.gz == phase 6's": tables[0] == tables[1],
+        "rank 0's table == its targets.csv.gz":
+            hashlib.sha256(tables[1]).hexdigest() == first["table_sha"],
+        "ranks other than 0 wrote nothing":
+            all(not os.listdir(r["out"]) and not os.listdir(r["cr_out"])
+                for r in other),
+        "every rank's table and controls == rank 0's":
+            all(r["table_sha"] == first["table_sha"]
+                and r["controls"] == first["controls"] for r in other),
+        "controls == phase 13's sharded design run's":
+            pd.read_csv(io.StringIO(first["controls"]), index_col=0).equals(
+                ref["sharded_controls"]),
+        "every index sharded": all(r["backend"] == "sharded"
+                                   for r in ranks),
+        "every rank on cuda:0": all(r["device"] == "cuda:0" for r in ranks),
+        "collective logs equal on every rank": all(
+            r[k]["calls"] == first[k]["calls"] for r in other
+            for k in ("log", "cr_log")),
+        "no collective began while another was in flight": all(
+            r[k]["overlaps"] == 0 for r in ranks for k in ("log", "cr_log")),
+        "K1 and K2 launched on every rank": all(
+            min(r["launches"][:2]) > 0 for r in ranks),
+        "C. ruddii unseeded: controls equal on every rank": all(
+            r["cr_controls"] == first["cr_controls"] for r in other),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14: {failed}")
+    for r in ranks:
+        for line in r["stages"]:
+            say(f"  rank {r['rank']} {line}")
+        ops = {}
+        for op, _ in r["log"]["calls"]:
+            ops[op] = ops.get(op, 0) + 1
+        say(f"phase 14 rank {r['rank']} of {RANKS} (two processes sharing "
+            f"one card, not a scaling figure) on {r['device']}, mesh "
+            f"{tuple(r['mesh'])}: P. aeruginosa design run {r['wall']:.2f} s "
+            f"wall, controls stage {stage_seconds(r['stages'], 'controls')} "
+            f"s, {r['searched']} candidates searched; launches: count "
+            f"{r['launches'][0]}, top-k {r['launches'][1]}; gloo "
+            f"collectives {len(r['log']['calls'])} ({ops}) in "
+            f"{r['log']['ms']:.1f} ms; C. ruddii unseeded "
+            f"{len(r['cr_log']['calls'])} collectives in "
+            f"{r['cr_log']['ms']:.1f} ms")
+    say(f"phase 14 {RANKS} gloo ranks on one card: " + "; ".join(checks)
+        + f" ({len(tables[1])} bytes; {first['check']})")
 
 
 def kernel_name(mangled: str) -> str:
@@ -1702,10 +1897,13 @@ def main() -> int:
     leven4 = phase_leven_tiers(fcount, dev, uniq, b1_peak)
     phase_scored_design(topk, dev, hamming_controls, hamming_table)
     phase_app(dev)
-    phase_sharded(dev, uniq, {"mask2": mask2, "counts2": counts2,
-                              "lists": lists, "out": hamming_out,
-                              "controls": hamming_controls, "leven3": leven3,
-                              "leven4": leven4})
+    sharded_controls = phase_sharded(
+        dev, uniq, {"mask2": mask2, "counts2": counts2, "lists": lists,
+                    "out": hamming_out, "controls": hamming_controls,
+                    "leven3": leven3, "leven4": leven4})
+    torch.cuda.empty_cache()
+    phase_two_ranks({"out": hamming_out,
+                     "sharded_controls": sharded_controls})
     say(json.dumps({"kernels": [count.row, topk.row, pcount.row, ptopk.row,
                                 fcount.row, ltopk.row]}))
     print(json.dumps({"ok": True, "device": {
@@ -1715,4 +1913,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -3,7 +3,8 @@ processes."""
 from __future__ import annotations
 
 import logging
-from typing import Optional, Sequence
+import os
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -13,12 +14,33 @@ from ..knn.sharded import Mesh, make_mesh
 logger = logging.getLogger(__name__)
 
 
+def local_devices() -> List[torch.device]:
+    """The cards of this process, from torchrun's ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` and the n visible cards: a contiguous block of
+    ``n // LOCAL_WORLD_SIZE`` cards when n >= ``LOCAL_WORLD_SIZE``, else
+    card ``LOCAL_RANK % n``; every visible card when either variable is
+    unset (one process a host, as the JAX package has it)."""
+    n = torch.cuda.device_count()
+    local_rank = os.environ.get("LOCAL_RANK")
+    local_world = os.environ.get("LOCAL_WORLD_SIZE")
+    if local_rank is None or local_world is None or n == 0:
+        ids = range(n)
+    elif n >= int(local_world):
+        per = n // int(local_world)
+        ids = range(int(local_rank) * per, (int(local_rank) + 1) * per)
+    else:
+        ids = [int(local_rank) % n]
+    return [torch.device("cuda", i) for i in ids]
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
     """Join the ``torch.distributed`` process group of ``num_processes``
     processes as rank ``process_id``, through ``coordinator_address``
-    (``host:port``): NCCL when a card is visible, gloo otherwise.
+    (``host:port``): NCCL when a card is visible, gloo otherwise.  Before
+    a NCCL group starts, this process's current card becomes the first of
+    :func:`local_devices`.
 
     A no-op when a group is already initialised, and in a single process
     unless an address is given.  A failed start raises."""
@@ -30,6 +52,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
                              "(host:port)")
         return
     backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(local_devices()[0])
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes or 1,
@@ -41,11 +65,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
 def auto_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """A (q, d) mesh over the first ``n_devices`` of ``devices`` (default:
-    every visible card).  The database axis ``d`` takes them all but one
-    factor of 2, which goes to the query axis ``q`` when n >= 4 and even."""
+    this process's cards, :func:`local_devices`).  The database axis ``d``
+    takes them all but one factor of 2, which goes to the query axis ``q``
+    when n >= 4 and even."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = local_devices()
     n = n_devices or len(devices)
     q_shards, d_shards = 1, n
     if n >= 4 and n % 2 == 0:

@@ -18,12 +18,15 @@ and a call whose queries hold an N takes the 2-bit kernels (the N gate).
 
 The sharded backend (:mod:`.sharded`, as the JAX package's) splits the
 database over a (q, d) mesh of devices and merges the shards' answers by
-packed key, so its answers equal the single-device ones.  It is chosen by
-``backend="sharded"``, by ``GUIDEMAKER_TPU_KERNEL=sharded``, or by a
-``device`` of ``None`` or ``"cuda"`` when more than one card is visible;
-its mesh is :func:`..distributed.auto_mesh` on a card, one shard on the
-CPU, or whatever is put into ``_mesh`` before the first call.  It keeps the
-2-bit layout.
+packed key, so its answers equal the single-device ones.  Without a
+``backend``, it is chosen by ``GUIDEMAKER_TPU_KERNEL=sharded``, by an
+initialised process group of world size > 1 (on either device, as the JAX
+package shards when ``jax.devices()`` spans processes), or by a ``device``
+of ``None`` or ``"cuda"`` when more than one card is visible;
+``backend="sharded"`` chooses it too, and any other ``backend`` gives an
+index of this rank alone.  Its mesh is :func:`..distributed.auto_mesh` on
+a card (this process's cards), one shard on the CPU, or whatever is put
+into ``_mesh`` before the first call.  It keeps the 2-bit layout.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from . import stream
 from .hamming import MAX_LEN, host_lists, pack_codes
 from .leven import leven_pass_filter
 from .sharded import (ShardedDb, fused_sharded_count, fused_sharded_topk,
-                      prepare_db_sharded, sharded_leven_topk)
+                      prepare_db_sharded, rank_and_world, sharded_leven_topk)
 
 logger = logging.getLogger(__name__)
 
@@ -67,12 +70,14 @@ def _placement(device, backend):
     """(device, sharded) of an index from the port's ``device`` and a JAX
     ``backend`` name (mapped through ``_SAVED_BACKENDS``); the card when
     neither is given.  Without ``backend``, the index is sharded when
-    ``GUIDEMAKER_TPU_KERNEL`` is ``sharded``, or when ``device`` names no
-    one card and more than one is visible.  Raises ``ValueError`` on an
-    unknown backend or when the two name different device types."""
+    ``GUIDEMAKER_TPU_KERNEL`` is ``sharded``, when a process group of world
+    size > 1 is initialised, or when ``device`` names no one card and more
+    than one is visible.  Raises ``ValueError`` on an unknown backend or
+    when the two name different device types."""
     if backend is None:
         dev = resolve_device("cuda" if device is None else device)
         return dev, (os.environ.get("GUIDEMAKER_TPU_KERNEL") == "sharded"
+                     or rank_and_world()[1] > 1
                      or (dev.type == "cuda" and dev.index is None
                          and torch.cuda.device_count() > 1))
     if backend not in _SAVED_BACKENDS:

@@ -25,7 +25,11 @@ initialised (:func:`..distributed.init_distributed`), rank ``r`` of ``W``
 holds global shards ``r * d .. (r + 1) * d - 1`` of ``W * d``, and every
 rank holds all the queries.  A rank merges its own shards, then the ranks
 merge by ``all_gather`` of key lists padded to one width, and counts by
-``all_reduce``.  A group of world size 1 goes through the collectives too.
+``all_reduce``, on the mesh's first device under NCCL and gloo alike
+(gloo takes tensors on a card too).  A group of world size 1 goes through
+the collectives too.  Every rank must make the same calls in the same
+order, from one thread at a time: a call's collective is matched with the
+other ranks' by its place in that order.
 """
 from __future__ import annotations
 
@@ -67,10 +71,11 @@ def _device(d) -> torch.device:
 def make_mesh(q_shards: int, d_shards: int,
               devices: Optional[Sequence] = None) -> Mesh:
     """A (q, d) mesh over the first ``q_shards * d_shards`` of ``devices``
-    (default: every visible card), row by row; a device may repeat."""
+    (default: this process's cards, :func:`..distributed.local_devices`),
+    row by row; a device may repeat."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        from ..distributed.mesh import local_devices
+        devices = local_devices()
     if q_shards < 1 or d_shards < 1:
         raise ValueError(f"mesh shape must be positive, got "
                          f"({q_shards}, {d_shards})")
@@ -87,6 +92,23 @@ def _group() -> Optional[Tuple[int, int]]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return None
+
+
+def rank_and_world() -> Tuple[int, int]:
+    """(rank, world size) of the initialised process group; (0, 1) without
+    one."""
+    return _group() or (0, 1)
+
+
+def broadcast_int(value: int) -> int:
+    """Rank 0's ``value`` on every rank of the initialised process group,
+    by one ``broadcast`` of an int64 on the group's device (this process's
+    card for NCCL, the CPU for gloo)."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([value], dtype=torch.int64, device=dev)
+    dist.broadcast(t, src=0)
+    return int(t.item())
 
 
 @dataclass(frozen=True, eq=False)
@@ -127,7 +149,7 @@ def shard_rows(rows, mesh: Mesh,
     if not 1 <= nd <= MAX_DB:
         raise ValueError(f"database must hold 1..{MAX_DB} rows, got {nd}")
     d_local = mesh.devices.shape[1]
-    rank, world = _group() or (0, 1)
+    rank, world = rank_and_world()
     per_shard = -(-nd // (world * d_local))
     shards, offsets = [], []
     for s in range(d_local):

@@ -21,6 +21,7 @@ import pandas as pd
 from . import definitions
 from .annotate import Annotation
 from .io import get_fastas, parse_fasta
+from .knn.sharded import rank_and_world
 from .plot import GuideMakerPlot
 from .scan import PamTarget
 from .score import cfd_score, get_doench_efficiency_score
@@ -90,8 +91,13 @@ class PipelineResult:
 
 
 def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineResult:
-    """Run the GuideMaker workflow; optionally write csv.gz outputs."""
+    """Run the GuideMaker workflow; optionally write csv.gz outputs.
+
+    Under a ``torch.distributed`` process group every rank runs this with
+    the same ``cfg`` and returns the whole result; the index is sharded
+    over the ranks, and only rank 0 writes files."""
     cfg.validate()
+    write_outputs = write_outputs and rank_and_world()[0] == 0
     device = resolve_device(cfg.device)
     result = PipelineResult()
     owns_tempdir = False
@@ -144,6 +150,9 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
         # the table format needs its result, so its device time overlaps
         # the host-bound annotation stages.  The "exact k-NN" stage records
         # the join wait, the wall-clock the pass costs the pipeline.
+        # Across processes its collectives keep one order on every rank
+        # only because, while it runs, this thread issues no collective
+        # until _join_neighbors.
         nb_exc: List[BaseException] = []
 
         def _run_neighbors():
@@ -202,7 +211,9 @@ def run_pipeline(cfg: PipelineConfig, write_outputs: bool = True) -> PipelineRes
             # the control search (mostly device time) runs in the
             # background from here, after the retention pass has left the
             # card, and hides behind the table and write stages; the
-            # "controls" stage below records its join wait
+            # "controls" stage below records its join wait.  Under a
+            # process group of world size > 1 it starts nothing, and the
+            # search runs in that stage, on this thread
             tl.launch_control_search(fastapath, configpath=cfg.config,
                                      length=cfg.guidelength,
                                      n=cfg.controls, seed=cfg.seed)

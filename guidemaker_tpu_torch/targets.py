@@ -34,6 +34,7 @@ import yaml
 from . import dna
 from .io.records import record_id_and_seq
 from .knn import KnnIndex
+from .knn.sharded import broadcast_int, rank_and_world
 
 logger = logging.getLogger(__name__)
 
@@ -337,9 +338,15 @@ class TargetProcessor:
           stops at the first triage group (2-bit layout, chunked path) or
           rung (packed layout, monolithic path) where they reach ``n``;
         * the result is the ``n`` most distant verified candidates.
+
+        Under a process group of world size > 1 every rank takes rank 0's
+        seed (drawn there when ``seed`` is None), so that the counts summed
+        and the lists gathered across ranks are of one candidate set.
         """
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2 ** 63))
+        if rank_and_world()[1] > 1:
+            seed = broadcast_int(seed)
         device = self.index.device
         # reference base order G, C, A, T (core.py:590-592)
         cum = torch.cumsum(torch.tensor(
@@ -447,12 +454,21 @@ class TargetProcessor:
         host-bound table stages.  A later ``get_control_seqs`` call with
         the same parameters joins the thread and returns its result;
         exceptions re-raise at the join.
+
+        Under a process group of world size > 1 no thread starts, and
+        ``get_control_seqs`` runs the search on its caller's thread: every
+        rank must issue its collectives in one order, and a second thread
+        issuing them beside the caller's would not keep it.  Returns the
+        thread, or None.
         """
         from .io import parse_fasta
 
         self._control_args = (configpath, length, n, seed)
         self._control_result = None
         self._control_exc: Optional[BaseException] = None
+        self._control_thread = None
+        if rank_and_world()[1] > 1:
+            return None
 
         def _run():
             t0 = time.time()
