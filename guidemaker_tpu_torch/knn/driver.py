@@ -231,6 +231,18 @@ class KnnIndex:
                     pack_codes(part), self._db, self.length, editdist))
         return torch.cat(parts)
 
+    def _count_all(self, editdist: int) -> torch.Tensor:
+        """:meth:`_count` of every database guide against the database.
+        The 2-bit layout on one device takes the resident rows ``_db`` as
+        its queries, neither copied nor packed again; the packed layout and
+        the sharded backend take the codes, in their own query forms."""
+        if self.backend == "sharded" or self.packed:
+            return self._count(self._as_codes(self._codes), editdist)
+        return torch.cat([
+            stream.hamming_count(self._db[lo:lo + _COUNT_CHUNK], self._db,
+                                 self.length, editdist)
+            for lo in range(0, self._n, _COUNT_CHUNK)])
+
     @property
     def seqs(self) -> List[str]:
         """Indexed sequences as a Python list (materialized lazily)."""
@@ -248,32 +260,37 @@ class KnnIndex:
             self._seq_arr = pa.array(arr, from_pandas=True)
         return self._seq_arr
 
-    def _counting_filter_valid(self, seqs) -> bool:
-        """True iff the counting retention shortcut is exact for these
-        queries: the database must be duplicate-free and every query a
-        member (so the self-hit contributes exactly one count).  Otherwise
-        retention takes the k=2 path, which implements the general rule."""
-        if not isinstance(seqs, (list, tuple)):
-            import pyarrow as pa
-            import pyarrow.compute as pc
-            if self._dedup_ok is None:
-                self._dedup_ok = bool(
-                    len(self.seq_array.unique()) == self._n)
-            if not self._dedup_ok:
-                return False
-            qa = seqs if isinstance(seqs, pa.Array) \
-                else pa.array(seqs, from_pandas=True)
-            if qa is self._seq_arr or len(qa) == 0:
-                return True
-            return bool(pc.all(pc.is_in(
-                qa, value_set=self.seq_array)).as_py())
-        if self._seqset is None:
-            self._seqset = frozenset(self.seqs)
-        if len(self._seqset) != self._n:
-            return False
-        if len(seqs) == self._n and list(seqs) == self.seqs:
-            return True
-        return all(s in self._seqset for s in seqs)
+    def _counting_route(self, qs) -> Tuple[bool, bool]:
+        """(counting, all_vs_all) for the queries ``qs``, a list or tuple
+        of strings or a pyarrow array.  ``counting``: the counting
+        retention shortcut is exact, as it is when the database is
+        duplicate-free and every query a member (the self-hit then
+        contributes exactly one count); otherwise retention takes the k=2
+        path, which implements the general rule.  ``all_vs_all``: the
+        queries are the whole database, in order, so the count reuses the
+        resident database rows.  Equal queries are members, so equality is
+        tested first, and the membership test (an Arrow ``is_in``, which
+        hashes the database) runs only when it fails."""
+        if isinstance(qs, (list, tuple)):
+            if self._seqset is None:
+                self._seqset = frozenset(self.seqs)
+            if len(self._seqset) != self._n:
+                return False, False
+            if len(qs) == self._n and list(qs) == self.seqs:
+                return True, True
+            return all(s in self._seqset for s in qs), False
+        import pyarrow.compute as pc
+        if self._dedup_ok is None:
+            self._dedup_ok = bool(len(self.seq_array.unique()) == self._n)
+        if not self._dedup_ok:
+            return False, False
+        # pc.equal gives a null guide a null, which pc.all skips
+        if qs is self._seq_arr or (
+                len(qs) == self._n and qs.null_count == 0
+                and pc.all(pc.equal(qs, self.seq_array)).as_py()):
+            return True, True
+        return bool(pc.all(pc.is_in(qs, value_set=self.seq_array)).as_py()), \
+            False
 
     def __len__(self) -> int:
         return self._n
@@ -283,19 +300,6 @@ class KnnIndex:
             return dna.encode_batch(seqs, self.length)
         codes, _ = dna.encode_pandas(seqs, self.length)
         return codes
-
-    def _seqs_equal_db(self, seqs) -> bool:
-        """Query batch == the whole database, in order (the all-vs-all
-        retention then reuses the resident database rows)."""
-        if isinstance(seqs, (list, tuple)):
-            return list(seqs) == self.seqs
-        if seqs is self._seq_arr:
-            return True
-        import pyarrow as pa
-        import pyarrow.compute as pc
-        qa = seqs if isinstance(seqs, pa.Array) \
-            else pa.array(seqs, from_pandas=True)
-        return bool(pc.all(pc.equal(qa, self.seq_array)).as_py())
 
     def query(self, seqs: Sequence[str],
               k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -357,27 +361,34 @@ class KnnIndex:
         if self._n < 2:
             # reference semantics: dists[1] is padding (-1) -> nothing passes
             return np.zeros(len(seqs), dtype=bool)
-        if editdist <= self.length and self._counting_filter_valid(seqs):
-            all_vs_all = len(seqs) == self._n and self._seqs_equal_db(seqs)
+        qs = seqs
+        if not isinstance(seqs, (list, tuple)):
+            # one Arrow array a call, for every check and the encoding
+            import pyarrow as pa
+            if not isinstance(seqs, pa.Array):
+                qs = pa.array(seqs, from_pandas=True)
+        counting, all_vs_all = (self._counting_route(qs)
+                                if editdist <= self.length else (False, False))
+        if counting:
             if self.metric == "leven":
                 db = self._as_codes(self._codes)
                 q = db if all_vs_all else self._as_codes(
-                    self._encode_queries(seqs))
+                    self._encode_queries(qs))
                 if self.backend == "sharded":
                     passed = leven_pass_filter(q, db, editdist,
                                                mesh=self._sharded_db().mesh)
                 else:
                     passed = leven_pass_filter(q, db, editdist)
                 return passed.cpu().numpy()
-            # all-vs-all: no re-encoding
-            qc = self._codes if all_vs_all else self._encode_queries(seqs)
-            counts = self._count(self._as_codes(qc), editdist)
+            counts = (self._count_all(editdist) if all_vs_all else
+                      self._count(self._as_codes(self._encode_queries(qs)),
+                                  editdist))
             # dists[1] >= editdist  <=>  count(dist < editdist) <= 1: for
             # editdist > 0 the self-hit always contributes exactly 1; for
             # editdist == 0 nothing does and every query passes (matching
             # the reference threshold, which is vacuous at 0)
             return (counts <= 1).cpu().numpy()
-        dists, _ = self.query(seqs, k=2)
+        dists, _ = self.query(qs, k=2)
         return (dists[:, 1] >= 0) & (dists[:, 1] >= editdist)
 
     # ------------------------------------------------------------------

@@ -315,19 +315,52 @@ def _filter_case(case, rng):
     seqs = list(dict.fromkeys(dna.decode_rows(codes)))
     if case == "member":
         return seqs, seqs
-    if case == "member_arrow":
-        col = pd.Series(seqs, dtype="str")
-        return col, col.iloc[::3]
     if case == "nonmember":
         qc = dna.encode(seqs[0]).copy()
         qc[0] ^= 1                          # one db neighbor at distance 1
         return seqs, [dna.decode_rows(qc[None, :])[0], seqs[1]]
-    return seqs + [seqs[0]], seqs[:50]      # duplicated database
+    if case == "duplicated":
+        return seqs + [seqs[0]], seqs[:50]
+    return _column_case(case, seqs)
+
+
+def _column_case(case, seqs):
+    """(database column, queries) of the pandas cases: the column itself,
+    an equal fresh column, a subset, a reversed copy, a column of the
+    database's length with one non-member, and an object column with one
+    None."""
+    col = pd.Series(seqs, dtype="str")
+    if case == "db_column":
+        return col, col
+    if case == "fresh_column":
+        return col, pd.Series(list(seqs), dtype="str")
+    if case == "member_arrow":
+        return col, col.iloc[::3]
+    if case == "reversed":
+        return col, pd.Series(seqs[::-1], dtype="str")
+    if case == "one_nonmember":
+        qc = dna.encode(seqs[5]).copy()
+        qc[0] ^= 1
+        guide = dna.decode_rows(qc[None, :])[0]
+        assert guide not in seqs
+        return col, pd.Series(seqs[:5] + [guide] + seqs[6:], dtype="str")
+    assert case == "with_none"
+    return col, pd.Series(seqs[:5] + [None] + seqs[6:], dtype=object)
+
+
+#: case -> (counting shortcut taken, pyarrow is_in calls a call, all-vs-all)
+FILTER_CASES = {
+    "member": (True, 0, True), "member_arrow": (True, 1, False),
+    "nonmember": (False, 0, False), "duplicated": (False, 0, False),
+    "db_column": (True, 0, True), "fresh_column": (True, 0, True),
+    "reversed": (True, 1, False), "one_nonmember": (False, 1, False),
+    "with_none": (False, 1, False)}
 
 
 @pytest.mark.parametrize("case,counting", [
     ("member", True), ("member_arrow", True), ("nonmember", False),
-    ("duplicated", False)])
+    ("duplicated", False), ("db_column", True), ("fresh_column", True),
+    ("reversed", True), ("one_nonmember", False), ("with_none", False)])
 def test_pass_distance_filter_matches_jax(case, counting, monkeypatch):
     db, queries = _filter_case(case, np.random.default_rng(9))
     calls = []
@@ -339,6 +372,14 @@ def test_pass_distance_filter_matches_jax(case, counting, monkeypatch):
 
     monkeypatch.setattr(stream, "hamming_count", spy)
     for editdist in (0, 2, 3):
+        if case == "with_none":
+            # no mask: both packages refuse the null guide, as before
+            # equality was tested first
+            for idx in (KnnIndex(db, device="cpu"),
+                        JaxKnnIndex(db, backend="xla")):
+                with pytest.raises(ValueError, match="share one length"):
+                    idx.pass_distance_filter(queries, editdist)
+            continue
         got = KnnIndex(db, device="cpu").pass_distance_filter(queries,
                                                               editdist)
         ref = JaxKnnIndex(list(db), backend="xla").pass_distance_filter(
@@ -347,6 +388,55 @@ def test_pass_distance_filter_matches_jax(case, counting, monkeypatch):
     assert bool(calls) == counting
     if case == "duplicated":
         assert not got[0]       # the duplicated guide has a 0-distance twin
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_CASES))
+def test_retention_tests_equality_before_membership(case, monkeypatch):
+    """Queries equal to the database reach the all-vs-all count, on the
+    resident rows, with no pyarrow ``is_in``; every other input calls it
+    once a call, as it did before equality came first, and takes the same
+    route."""
+    import pyarrow.compute as pc
+    counting, n_is_in, all_vs_all = FILTER_CASES[case]
+    db, queries = _filter_case(case, np.random.default_rng(9))
+    idx = KnnIndex(db, device="cpu")
+    is_in, counts = [], []
+    real_is_in, real_count = pc.is_in, stream.hamming_count
+    monkeypatch.setattr(pc, "is_in",
+                        lambda *a, **kw: is_in.append(1) or real_is_in(*a,
+                                                                       **kw))
+    monkeypatch.setattr(stream, "hamming_count",
+                        lambda q, *a: counts.append(q) or real_count(q, *a))
+    for call in range(2):
+        try:
+            idx.pass_distance_filter(queries, 2)
+        except ValueError:
+            assert case == "with_none"
+        assert len(is_in) == n_is_in * (call + 1)
+    assert bool(counts) == counting
+    for q in counts:
+        same = q.untyped_storage().data_ptr() == \
+            idx._db.untyped_storage().data_ptr()
+        assert same == all_vs_all
+
+
+@pytest.mark.parametrize("chunk", [1 << 21, 64])
+@pytest.mark.parametrize("with_n", [False, True])
+def test_all_vs_all_count_on_resident_rows(chunk, with_n, monkeypatch):
+    """The 2-bit all-vs-all count takes the resident rows as its queries,
+    whole or in chunks, and counts exactly what the codes, copied and
+    packed again, count."""
+    import guidemaker_tpu_torch.knn.driver as port_driver
+    _, db = _codes(np.random.default_rng(17), 2, 300, 20)
+    if not with_n:
+        db = np.minimum(db, 3)
+    monkeypatch.setattr(port_driver, "_COUNT_CHUNK", chunk)
+    idx = KnnIndex(dna.decode_rows(db), device="cpu")
+    for editdist in (0, 1, 2, 3, 20):
+        got = idx._count_all(editdist).numpy()
+        np.testing.assert_array_equal(
+            got, idx._count(idx._as_codes(idx._codes), editdist).numpy())
+        assert got.shape == (300,)
 
 
 def test_pass_distance_filter_singleton_db():

@@ -29,6 +29,7 @@ from guidemaker_tpu_torch.knn.features import (feature_count_plain,
                                                gram_rows, unpack_rows)
 from guidemaker_tpu_torch.knn.hamming import pack_codes, unpack_keys
 from test_torch_controls import FASTA, N, SEED, _config, _draw, _inject
+from test_torch_knn import _column_case
 
 
 def _t(a):
@@ -410,10 +411,13 @@ def test_index_query_matches_jax_index(k):
 
 @pytest.mark.parametrize("case,counting", [
     ("member", True), ("member_arrow", True), ("subset", True),
-    ("nonmember", False), ("duplicated", False)])
+    ("nonmember", False), ("duplicated", False), ("fresh_column", True),
+    ("reversed", True), ("one_nonmember", False), ("with_none", False)])
 def test_index_retention_matches_jax(case, counting, monkeypatch):
     """The counting tiers where their preconditions hold, the k=2 query
-    where they do not, at e 2 to 5."""
+    where they do not, at e 0 and 2 to 5; the pandas cases of
+    ``test_torch_knn`` on a Levenshtein index ("member_arrow" is the
+    database's own column there)."""
     seqs = _seqs(np.random.default_rng(9), 250, 16)
     db, queries = seqs, seqs
     if case == "member_arrow":
@@ -427,6 +431,8 @@ def test_index_retention_matches_jax(case, counting, monkeypatch):
         queries = [dna.decode_rows(qc[None, :])[0], seqs[1]]
     elif case == "duplicated":
         db, queries = seqs + [seqs[0]], seqs[:50]
+    elif case != "member":
+        db, queries = _column_case(case, seqs)
     calls = []
     monkeypatch.setattr(leven, "leven_pass_filter",
                         lambda *a, _r=leven.leven_pass_filter:
@@ -434,13 +440,48 @@ def test_index_retention_matches_jax(case, counting, monkeypatch):
     import guidemaker_tpu_torch.knn.driver as port_driver
     monkeypatch.setattr(port_driver, "leven_pass_filter",
                         leven.leven_pass_filter)
-    for e in (2, 3, 4, 5):
-        got = KnnIndex(db, metric="leven", device="cpu").pass_distance_filter(
-            queries, e)
+    for e in (0, 2, 3, 4, 5):
+        port = KnnIndex(db, metric="leven", device="cpu")
+        if case == "with_none":
+            jax_idx = JaxKnnIndex(db, metric="leven", backend="xla")
+            for idx in (port, jax_idx):
+                with pytest.raises(ValueError, match="share one length"):
+                    idx.pass_distance_filter(queries, e)
+            continue
+        got = port.pass_distance_filter(queries, e)
         ref = JaxKnnIndex(list(db), metric="leven",
                           backend="xla").pass_distance_filter(list(queries), e)
         np.testing.assert_array_equal(got, ref)
     assert bool(calls) == counting
+
+
+@pytest.mark.parametrize("case,n_is_in", [
+    ("member_arrow", 0), ("fresh_column", 0), ("reversed", 1),
+    ("one_nonmember", 1)])
+def test_index_retention_equality_before_membership(case, n_is_in,
+                                                    monkeypatch):
+    """On a Levenshtein index too, a column equal to the database goes to
+    the all-vs-all tiers with no pyarrow ``is_in``; another calls it once
+    a call, as before."""
+    import pyarrow.compute as pc
+    seqs = _seqs(np.random.default_rng(9), 250, 16)
+    db, queries = _column_case("db_column" if case == "member_arrow"
+                               else case, seqs)
+    idx = KnnIndex(db, metric="leven", device="cpu")
+    is_in, firsts = [], []
+    real_is_in, real_filter = pc.is_in, leven.leven_pass_filter
+    monkeypatch.setattr(pc, "is_in",
+                        lambda *a, **kw: is_in.append(1) or real_is_in(*a,
+                                                                       **kw))
+    import guidemaker_tpu_torch.knn.driver as port_driver
+    monkeypatch.setattr(port_driver, "leven_pass_filter",
+                        lambda q, db, e, **kw: firsts.append(q is db)
+                        or real_filter(q, db, e, **kw))
+    for call in range(2):
+        idx.pass_distance_filter(queries, 3)
+        assert len(is_in) == n_is_in * (call + 1)
+    # all-vs-all: the database's codes are the queries, not re-encoded
+    assert firsts == ([n_is_in == 0] * 2 if case != "one_nonmember" else [])
 
 
 def test_index_save_load(tmp_path):
