@@ -9,25 +9,32 @@ Phases, one line each; any failure exits non-zero:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build: the CUDA kernels of guidemaker_tpu_torch/csrc, one nvcc per
-   source, all started together; ptxas's registers and spills for every
-   kernel (each kcap of the top-k), and by ``cuobjdump -sass`` the IMMA
-   and BMMA (int8 and 1-bit tensor-core), POPC and IDP4A (dp4a)
-   instructions of the 2-bit and packed count kernels, of every kcap of
-   the 2-bit and packed top-k kernels (each must have IMMA) and of the
-   3-gram count at each of its 8 k256 step counts (BMMA), none with POPC
-   or IDP4A, and none may spill on the main path (the counts, top-k kcap
-   <= 8, the 3-gram count at <= 5 steps); then the tensor-core rate probe
-   (csrc/mma_rate.cu): s8 m16n8k32 and b1 m16n8k256 mma.sync chains,
-   each kind's operations a second and SASS opcode, and from their ratio
-   the card's 1-bit rate that the 3-gram count's bound uses;
+   source, all started together; ptxas's registers, spills and static
+   shared memory for every kernel (each kcap of the top-k) and its wgmma
+   notes, and by ``cuobjdump -sass`` the tensor-core instructions: IGMMA
+   (int8 wgmma) in the 2-bit count, which may hold no IMMA and whose
+   products ptxas may not serialise, IMMA (int8 mma.sync) in the packed
+   count and every kcap of the 2-bit and packed top-k kernels, BMMA
+   (1-bit) in the 3-gram count at each of its 8 k256 step counts, none
+   with POPC or IDP4A (dp4a), and none may spill on the main path (the
+   counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); the 2-bit
+   count's LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP counts;
+   then the tensor-core rate probe (csrc/mma_rate.cu): s8 m16n8k32 and b1
+   m16n8k256 mma.sync chains and the s8 wgmma m64n128k32 chain the 2-bit
+   count issues, each kind's operations a second and SASS opcode, from the
+   mma.sync ratio the card's 1-bit rate that the 3-gram count's bound
+   uses, and the wgmma rate that phase 5 reads the 2-bit count against;
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
    kernels on N-free codes with duplicated rows (4096 x 200,001, odd, L 20
    and 21), every editdist and k of the main path and its edges; 3b, the
    2-bit count and top-k kernels at their tiling's edges (L 1, 8, 20, 24,
-   25, 27 and 32; nq 1, 15 and 4095; nd 200,003; a query block ending in
-   N and an all-N block; editdist 0-3 and L; k 1, 2, 3, 5, 20 and 128);
+   25, 27 and 32, the count's bias lane spare at all but 8, 24 and 32;
+   for the count nq 1, 63, 64, 65, 255, 257 and 4095 (m64 tiles, 256-query
+   blocks) and nd 129 and 200,003, for the top-k nq 1, 15 and 4095 and
+   nd 200,003; a query block ending in N and an all-N block; editdist 0-3
+   and L; k 1, 2, 3, 5, 20 and 128);
    3d, the packed count and top-k kernels at their tiling's edges (L 1,
    10, 11, 16, 20 and 21; nq 1, 15 and 4095; nd 200,002 and 200,003;
    editdist 0-3, the first with 3L - 4 editdist + 1 <= 0, and L; k 1, 2,
@@ -37,7 +44,10 @@ Phases, one line each; any failure exits non-zero:
 5. P. aeruginosa retention (NGG/5prime/20, all unique guides against all,
    dist 2) in both index layouts: 1,139,266 guides retained each time, and
    the 2-bit and packed count kernels equal to their plain versions, and
-   to each other, at full size;
+   to each other, at full size, each kernel's time against its bound and
+   the 2-bit count's also against its one-hot product at the probe's
+   wgmma rate; then the 2-bit count at the control search's triage shape
+   (2^19 random candidates against the index, editdist 7 and 2);
 6. the default P. aeruginosa design run with --controls 1000 and a fixed
    --seed, through the CLI's parser and ``run_pipeline``, in the 2-bit
    layout: its stage table, its rows, its neighbor lists against the
@@ -202,6 +212,11 @@ CFD_SAMPLE = 1000
 EDGE_LENGTHS = (1, 8, 20, 24, 25, 27, 32)
 EDGE_NQ = (1, 15, 4095)
 EDGE_ND = 200_003
+#: the 2-bit count's edges (phase 3b): its m64 tiles of queries (63, 64,
+#: 65), its 256-query blocks (255, 257), and databases ragged against its
+#: 128-row tile
+COUNT_EDGE_NQ = (1, 63, 64, 65, 255, 257, 4095)
+COUNT_EDGE_ND = (129, 200_003)
 #: the top-k's list edges (phase 3b): kcap 1, 2, 4, 8, 32 and 128
 EDGE_KS = (1, 2, 3, 5, 20, 128)
 #: the packed kernels' tiling edges (phase 3d): guide lengths at their k32
@@ -402,10 +417,12 @@ def topk_ms_by_splits(topk, q, db, length, k, want):
 
 def phase_edges(count, topk, dev):
     """The 2-bit count and top-k kernels against their plain versions at
-    their tiling's edges: k32 padding (EDGE_LENGTHS), query blocks
-    (EDGE_NQ), a database ragged against its tiles (EDGE_ND), a block whose
-    queries end in N, an all-N block, every editdist edge and every list
-    edge (EDGE_KS)."""
+    their tiling's edges: k32 padding and the count's bias lane
+    (EDGE_LENGTHS: none is spare at L 8, 24 and 32), query tiles and blocks
+    (COUNT_EDGE_NQ for the count, EDGE_NQ for the top-k), databases ragged
+    against their tiles (COUNT_EDGE_ND, EDGE_ND), a block whose queries
+    end in N, an all-N block, every editdist edge and every list edge
+    (EDGE_KS)."""
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.hamming import (hamming_count_plain,
                                                   hamming_topk_plain,
@@ -413,25 +430,30 @@ def phase_edges(count, topk, dev):
     rng = np.random.default_rng(97)
     n_count = n_topk = 0
     for length in EDGE_LENGTHS:
-        qn, dbn = random_codes(rng, max(EDGE_NQ), EDGE_ND, length)
+        qn, dbn = random_codes(rng, max(COUNT_EDGE_NQ), EDGE_ND, length)
         qn[256:512, max(1, length - 9):] = 4
         qn[512:768] = 4
         q = pack_codes(torch.from_numpy(qn).to(dev))
         db = pack_codes(torch.from_numpy(dbn).to(dev))
+        for nd in COUNT_EDGE_ND:
+            for nq in COUNT_EDGE_NQ:
+                for e in sorted({e for e in (0, 1, 2, 3, length)
+                                 if e <= length}):
+                    count.compare(
+                        stream.hamming_count(q[:nq], db[:nd], length, e),
+                        hamming_count_plain(q[:nq], db[:nd], length, e),
+                        f"count L={length} nq={nq} nd={nd} editdist={e}")
+                    n_count += 1
         for nq in EDGE_NQ:
-            for e in sorted({e for e in (0, 1, 2, 3, length) if e <= length}):
-                count.compare(stream.hamming_count(q[:nq], db, length, e),
-                              hamming_count_plain(q[:nq], db, length, e),
-                              f"count L={length} nq={nq} editdist={e}")
-                n_count += 1
             for k in EDGE_KS:
                 topk.compare(stream.hamming_topk(q[:nq], db, length, k),
                              hamming_topk_plain(q[:nq], db, length, k),
                              f"top-k L={length} nq={nq} k={k}")
                 n_topk += 1
     say(f"phase 3b count kernel vs plain at its tiling edges: exact in "
-        f"{n_count} comparisons, L {EDGE_LENGTHS}, nq {EDGE_NQ}, nd "
-        f"{EDGE_ND}, editdist 0,1,2,3,L")
+        f"{n_count} comparisons, L {EDGE_LENGTHS}, nq {COUNT_EDGE_NQ}, nd "
+        f"{COUNT_EDGE_ND}, editdist 0,1,2,3,L, an all-N block and a block "
+        f"ending in N")
     say(f"phase 3b top-k kernel vs plain at its tiling edges: exact in "
         f"{n_topk} comparisons, L {EDGE_LENGTHS}, nq {EDGE_NQ}, nd "
         f"{EDGE_ND}, k {EDGE_KS}, an all-N block and a block ending in N")
@@ -687,7 +709,7 @@ def pa_guides():
     return pd.Series(pd.unique(targets["target"]), dtype="str")
 
 
-def phase_retention(count, pcount, dev, uniq, t_host):
+def phase_retention(count, pcount, dev, uniq, t_host, wgmma_rate):
     from guidemaker_tpu_torch.knn import KnnIndex, stream
     from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
@@ -724,18 +746,52 @@ def phase_retention(count, pcount, dev, uniq, t_host):
         bound = kern.timed(ms, plain_ms, hamming_ops(n, n, 20),
                            INT8_OPS_PER_S, q.numel() * q.element_size()
                            + db.numel() * db.element_size() + 4 * n)
+        # the one-hot product K1 issues: 3 k32 steps of 32 bytes at L 20
+        onehot = (f"; its one-hot product (2 n^2 x 96 operations) at the "
+                  f"probe's wgmma rate "
+                  f"{2 * n * n * 96 / wgmma_rate * 1e3:.2f} ms, "
+                  f"{2 * n * n * 96 / wgmma_rate * 1e3 / ms:.4f} of the "
+                  f"kernel's time" if not packed else "")
         say(f"phase 5 P. aeruginosa retention, {layout} layout: {retained} of "
             f"{n} guides retained (expected {PA_RETAINED}); kernel == plain "
             f"at {n} x {n}; kernel {ms:.3f} ms ({n * n / ms / 1e9:.4f} T "
-            f"pairs/s, {bound / ms:.3f} of its {bound:.2f} ms int8 bound), "
-            f"plain {plain_ms:.3f} ms; pass_distance_filter "
+            f"pairs/s, {bound / ms:.3f} of its {bound:.2f} ms int8 bound"
+            f"{onehot}), plain {plain_ms:.3f} ms; pass_distance_filter "
             f"{t_filter:.3f} s")
+        if not packed:
+            control_chunk_times(count, db)
         del idx, db, got, want
     pcount.compare(counts["packed"], counts["2-bit"],
                    "P. aeruginosa packed count == 2-bit count")
     say(f"phase 5 packed count vector == 2-bit count vector; parse+scan "
         f"{t_host:.2f} s")
     return masks["2-bit"], counts["2-bit"]
+
+
+def control_chunk_times(count, db):
+    """K1 at the control search's triage shape: one chunk of 2^19 random
+    candidates (targets.py:_control_chunk_rows) against the index, at the
+    triage's editdist 7 and at retention's 2; each equal to the plain count
+    on its first 4,096 rows, with its time and its bound."""
+    from guidemaker_tpu_torch.knn import stream
+    from guidemaker_tpu_torch.knn.hamming import (hamming_count_plain,
+                                                  pack_codes)
+    rng = np.random.default_rng(SEED)
+    q = pack_codes(torch.from_numpy(rng.integers(
+        0, 4, size=(1 << 19, 20)).astype(np.uint8)).to(db.device))
+    nq, nd = q.shape[0], db.shape[0]
+    parts = []
+    for e in (7, 2):
+        got = stream.hamming_count(q, db, 20, e)
+        count.compare(got[:4096], hamming_count_plain(q[:4096], db, 20, e),
+                      f"control chunk count editdist {e}")
+        ms = cuda_ms(lambda e=e: stream.hamming_count(q, db, 20, e), 3)
+        bound = bound_ms(hamming_ops(nq, nd, 20), INT8_OPS_PER_S, 0)[0]
+        parts.append(f"editdist {e} {ms:.3f} ms ({nq * nd / ms / 1e9:.4f} "
+                     f"T pairs/s, {bound / ms:.3f} of its {bound:.2f} ms "
+                     f"bound)")
+    say(f"phase 5 K1 at the control triage's shape, {nq} x {nd}, exact on "
+        f"4096 rows: " + "; ".join(parts))
 
 
 class StageGrab(logging.Handler):
@@ -1720,8 +1776,8 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_report(log: str):
-    """{kernel: (registers, spill store bytes, spill load bytes)} from the
-    ``-Xptxas -v`` report of the build."""
+    """{kernel: [registers, spill store bytes, spill load bytes, static
+    shared bytes]} from the ``-Xptxas -v`` report of the build."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -1730,10 +1786,25 @@ def ptxas_report(log: str):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and fn:
-            out[fn] = [0, int(m.group(1)), int(m.group(2))]
+            out[fn] = [0, int(m.group(1)), int(m.group(2)), 0]
         m = re.search(r"Used (\d+) registers", line)
         if m and fn in out:
             out[fn][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn][3] = int(m.group(1)) if m else 0
+    return out
+
+
+def wgmma_notes(log: str):
+    """{kernel: [message, ...]} of ptxas's wgmma notes (C75xx: a wait or an
+    arrive it injected, or products it serialised)."""
+    out = {}
+    for line in log.splitlines():
+        m = re.search(r"\((C75\d\d)\) (.*?) in (?:the )?function '(\S+)'",
+                      line)
+        if m:
+            out.setdefault(kernel_name(m.group(3)), []).append(
+                f"{m.group(1)} {m.group(2)}")
     return out
 
 
@@ -1757,14 +1828,24 @@ def feature_kernels(steps):
 #: and the 3-gram count at S <= 5, guides of <= 22 bases)
 TC_KERNELS = {**{fn: "IMMA" for fn in tc_kernels((1, 2, 4, 8, 16, 32, 64,
                                                    128))},
-              **{fn: "BMMA" for fn in feature_kernels(range(1, 9))}}
+              **{fn: "BMMA" for fn in feature_kernels(range(1, 9))},
+              "count_kernel": "IGMMA"}
 NO_SPILL_KERNELS = tc_kernels((1, 2, 4, 8)) + feature_kernels(range(1, 6))
-#: the tensor-core rate probe's kernel for each kind (csrc/mma_rate.cu)
-PROBE_KERNELS = {"s8 m16n8k32": "mma_rate_kernel<0>",
-                 "b1 m16n8k256": "mma_rate_kernel<1>"}
-#: the opcodes phase 2 counts: tensor-core products, and the CUDA-core
-#: popcount and dp4a (``IDP.4A``) that a tensor-core kernel must not hold
-SASS_OPS = ("IMMA", "BMMA", "POPC", "IDP")
+#: the tensor-core rate probe's kernel for each kind (csrc/mma_rate.cu):
+#: (kernel, gm_mma_rate kind, blocks an SM, iterations, M, N, K of one
+#: product, products a warp (mma.sync) or a warpgroup (wgmma) an iteration,
+#: product issuers a block)
+PROBE_KERNELS = {
+    "s8 m16n8k32": ("mma_rate_kernel<0>", 0, 4, 4096, 16, 8, 32, 8, 8),
+    "b1 m16n8k256": ("mma_rate_kernel<1>", 1, 4, 4096, 16, 8, 256, 8, 8),
+    "s8 wgmma m64n128k32": ("wgmma_rate_kernel", 2, 2, 256, 64, 128, 32, 8,
+                            2)}
+#: the opcodes phase 2 counts: tensor-core products (IGMMA: int8 wgmma),
+#: and the CUDA-core popcount and dp4a (``IDP.4A``) that a tensor-core
+#: kernel must not hold; for K1 also the logic, the barriers (BAR: named
+#: and block barriers, SYNCS: mbarriers) and the warpgroup fences and waits
+SASS_OPS = ("IMMA", "BMMA", "IGMMA", "POPC", "IDP")
+K1_SASS_OPS = ("IGMMA", "LOP3", "SHF", "IMAD", "BAR", "SYNCS", "WARPGROUP")
 
 
 def kernel_sass(lib: str):
@@ -1776,41 +1857,47 @@ def kernel_sass(lib: str):
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    wanted = set(TC_KERNELS) | set(PROBE_KERNELS.values())
+    wanted = set(TC_KERNELS) | {v[0] for v in PROBE_KERNELS.values()}
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = kernel_name(part.split(None, 1)[0])
         if fn in wanted:
             ops = [w.split(".")[0] for w in part.split()]
-            out[fn] = {op: ops.count(op) for op in SASS_OPS}
+            out[fn] = {op: ops.count(op)
+                       for op in dict.fromkeys(SASS_OPS + K1_SASS_OPS)}
     return out
 
 
 def mma_rates(dev, sass):
     """{kind: operations a second} of the tensor-core rate probe
-    (csrc/mma_rate.cu), each kind's products counted 2 * 16 * 8 * K, on 4
-    blocks of 8 warps an SM; prints each with its SASS tensor opcodes."""
+    (csrc/mma_rate.cu, PROBE_KERNELS), each product counted 2 M N K;
+    prints each with its SASS tensor opcodes."""
     from guidemaker_tpu_torch.knn import build
     lib = build.library()
-    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
-    iters = 4096
-    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(4 * sms * 256, dtype=torch.int32, device=dev)
     rates = {}
-    for kind, (name, k) in enumerate((("s8 m16n8k32", 32),
-                                      ("b1 m16n8k256", 256))):
-        def run(kind=kind):
+    for name, (fn, kind, per_sm, iters, m, n, k, per_iter, issuers) in (
+            PROBE_KERNELS.items()):
+        blocks = per_sm * sms
+
+        def run(kind=kind, blocks=blocks, iters=iters):
             err = lib.gm_mma_rate(kind, blocks, iters, out.data_ptr(),
                                   torch.cuda.current_stream(dev).cuda_stream)
             if err:
                 raise RuntimeError(f"mma_rate kernel {kind}: CUDA error {err}")
         ms = cuda_ms(run, 5)
-        products = blocks * 8 * iters * 8
-        rates[name] = products * 2 * 16 * 8 * k / (ms * 1e-3)
-        ops = {op: n for op, n in sass.get(PROBE_KERNELS[name], {}).items()
-               if op.endswith("MMA") and n}
+        products = blocks * issuers * iters * per_iter
+        rates[name] = products * 2 * m * n * k / (ms * 1e-3)
+        ops = {op: c for op, c in sass.get(fn, {}).items()
+               if op.endswith("MMA") and c}
         say(f"  probe {name}: {rates[name] / 1e12:.1f} T operations/s, "
             f"{products / (ms * 1e-3) / 1e12:.4f} T products/s ({ms:.3f} ms "
             f"for {products} products), SASS {ops}")
+    say(f"  probe s8 wgmma/mma.sync: "
+        f"{rates['s8 wgmma m64n128k32'] / rates['s8 m16n8k32']:.4f}; wgmma "
+        f"{rates['s8 wgmma m64n128k32'] / INT8_OPS_PER_S:.4f} of the "
+        f"{INT8_OPS_PER_S / 1e12:,.0f} TOP/s int8 peak")
     ratio = rates["b1 m16n8k256"] / rates["s8 m16n8k32"]
     say(f"  probe b1/s8: {ratio:.4f} in operations, {ratio * 32 / 256:.4f} "
         f"in products; 1-bit rate taken as {ratio:.4f} x "
@@ -1842,9 +1929,15 @@ def main() -> int:
         ptxas = ptxas_report(fh.read())
     say(f"phase 2 build: {os.path.relpath(lib, ROOT)} in "
         f"{time.time() - t0:.2f} s")
-    for fn, (regs, st, ld) in sorted(ptxas.items()):
+    for fn, (regs, st, ld, smem) in sorted(ptxas.items()):
         say(f"  ptxas {fn}: {regs} registers, spill stores {st} B, spill "
-            f"loads {ld} B")
+            f"loads {ld} B, static shared {smem} B")
+    with open(lib[:-3] + ".log") as fh:
+        notes = wgmma_notes(fh.read())
+    say(f"  ptxas wgmma notes: {notes or 'none'}")
+    if any("serialized" in n for n in notes.get("count_kernel", [])):
+        raise AssertionError(f"count_kernel: ptxas serialised its wgmma "
+                             f"products: {notes['count_kernel']}")
     sass = kernel_sass(lib)
     for fn, op in TC_KERNELS.items():
         ops = sass.get(fn, {})
@@ -1858,6 +1951,11 @@ def main() -> int:
     say("  SASS (cuobjdump): " + ", ".join(
         f"{fn} {sass[fn][op]} {op} {sass[fn]['POPC']} POPC "
         f"{sass[fn]['IDP']} IDP4A" for fn, op in TC_KERNELS.items()))
+    if sass["count_kernel"]["IMMA"]:
+        raise AssertionError("count_kernel SASS holds mma.sync (IMMA)")
+    say("  SASS count_kernel (8 instantiations: k32 steps 1-4, bias lane or "
+        "not): " + ", ".join(f"{sass['count_kernel'][op]} {op}"
+                             for op in K1_SASS_OPS))
     rates = mma_rates(dev, sass)
     b1_peak = rates["b1 m16n8k256"] / rates["s8 m16n8k32"] * INT8_OPS_PER_S
     count = Kernel("hamming_count",
@@ -1888,7 +1986,8 @@ def main() -> int:
     t0 = time.time()
     uniq = pa_guides()
     mask2, counts2 = phase_retention(count, pcount, dev, uniq,
-                                     time.time() - t0)
+                                     time.time() - t0,
+                                     rates["s8 wgmma m64n128k32"])
     hamming_out, hamming_controls, hamming_table, lists = phase_design(
         count, topk, dev)
     phase_design_packed(pcount, ptopk, dev, hamming_out)

@@ -1,11 +1,13 @@
-// Shared pieces of the two 2-bit kernels on the int8 tensor cores
-// (hamming_count.cu, hamming_topk.cu): the one-hot layout, the block shape,
-// the A fragments decoded from the packed query rows, the database tile
+// Shared pieces of the mma.sync kernels on the tensor cores, first of the
+// 2-bit top-k (hamming_topk.cu): the one-hot layout, the block shape, the
+// A fragments decoded from the packed query rows, the database tile
 // decoded into shared memory, one warp's product with 32 of its rows, and
 // the count epilogue.  The packed-pair kernels (packed_common.cuh) share its
 // block shape, tile height, ldmatrix addressing, mma wrapper, cp.async tile
 // ring and count epilogue; the 3-gram count (feature_count.cu) all of these
 // but the one-hot layout, with the 1-bit product in place of the int8 one.
+// The 2-bit count (hamming_count.cu, on wgmma) takes its block and tile
+// heights.
 //
 // Layout: base i of a packed row (hamming_common.cuh) becomes the 32-bit
 // word `valid_i ? 1 << (8 * code_i) : 0`, four one-hot bytes, and a row

@@ -1,0 +1,172 @@
+// Hopper's warpgroup path to the int8 tensor cores, for the 2-bit count
+// kernel (hamming_count.cu) and the tensor-core rate probe (mma_rate.cu):
+// the shared-memory matrix descriptor, the s8 wgmma m64n128k32 product
+// with A in registers, its fences, commit and wait, the mbarriers of a
+// shared-memory ring, named barriers, and setmaxnreg.  Everything here is inline PTX for
+// sm_90a (wgmma and setmaxnreg exist for no other target).
+//
+// B layout: K-major without swizzle, in core matrices of 8 rows x 16
+// bytes, each 128 contiguous bytes (row i of the core matrix at byte
+// 16 i).  Row r, K byte k of a B tile of kRows rows and K = 32 KS bytes
+// lies at
+//     (r / 8) * 256 KS + (k / 16) * 128 + (r % 8) * 16 + k % 16,
+// so the core matrices of one 8-row group are contiguous along K (leading
+// byte offset 128) and the 8-row groups follow each other (stride byte
+// offset 256 KS).  The k32 step s starts 256 s bytes into the tile.
+//
+// A fragments (wgmma with A in registers, .s8): warp w of the warpgroup
+// holds rows 16 w .. 16 w + 15 of the m64 tile in the layout of
+// mma.m16n8k32's A (mma_common.cuh load_a): lane 4g + t holds in register
+// 0 row g, K bytes 4t..4t+3, in 1 row g + 8, the same bytes, in 2 and 3
+// the same rows at K bytes 16 + 4t .. 16 + 4t + 3.
+//
+// Accumulators (m64nNk32 .s32): lane 4g + t of warp w holds in d[4j + i]
+// the sum of row 16 w + g + 8 (i >> 1) with column 8 j + 2 t + (i & 1).
+#pragma once
+
+#include <stdint.h>
+
+#include "hamming_common.cuh"
+
+namespace gm {
+
+// The 64-bit shared-memory matrix descriptor of a tile at shared address
+// addr, K-major without swizzle (layout type 0): start address, leading
+// byte offset (between core matrices adjacent along K) and stride byte
+// offset (between 8-row groups), each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3ffff) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3ffff) >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of the warpgroup's committed wgmma groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" : : "n"(N) : "memory");
+}
+
+// Ties the registers of d to this point of the program, so that the
+// compiler neither reads them before a wgmma_wait that completes their
+// product nor writes them after the wgmma that reads them is issued.
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) : : "memory");
+}
+
+// d (+)= a x B over one k32 step: 64 rows of s8 A in registers (4 a
+// thread), 128 rows of s8 B at the descriptor; d = a x B when scale_d is
+// 0.  Asynchronous: d holds the sums after the wgmma_wait that completes
+// the group it was committed in.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy that wgmma reads B through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :
+               : "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :
+               : "r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of the barrier with parity `parity` has completed.
+// A barrier starts in phase 0, so a wait for parity 1 returns at once.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') of N threads, a
+// multiple of 32: bar_sync waits until N threads have arrived, bar_arrive
+// arrives without waiting.
+template <int N>
+__device__ __forceinline__ void bar_sync(uint32_t id) {
+  asm volatile("bar.sync %0, %1;\n" : : "r"(id), "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bar_arrive(uint32_t id) {
+  asm volatile("bar.arrive %0, %1;\n" : : "r"(id), "n"(N) : "memory");
+}
+
+// Give the warpgroup's threads N registers each (setmaxnreg): fewer for
+// a warpgroup that only moves data, more for one that holds accumulators.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" : : "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" : : "n"(N));
+}
+
+}  // namespace gm

@@ -1,0 +1,57 @@
+"""chip_smoke.py's readers of the build, on the CPU: the ptxas report and
+ptxas's wgmma notes it prints and checks in phase 2, and the edges and
+probe kinds it drives.  The phases themselves need the card."""
+import pytest
+
+import chip_smoke as cs
+
+K1 = ("_ZN49_GLOBAL__N__9f3fe782_16_hamming_count_cu_7a61f5c812count_kernel"
+      "EPK10ulonglong2iS2_iiiPi")
+PROBE = "_ZN44_GLOBAL__N__315cb702_11_mma_rate_cu_bd56cfbf17wgmma_rate_kernelEiPi"
+
+
+@pytest.mark.parametrize("code,text,fn", [
+    ("C7514", "Potential Performance Loss: wgmma.mma_async instructions are "
+     "serialized due to non wgmma instructions reading accumulator registers "
+     "of  a wgmma between start and end of the pipeline stage in the", K1),
+    ("C7517", "warpgroup.wait is injected in around line 1571 by compiler to "
+     "allow use of registers defined by GMMA in", K1),
+    ("C7519", "warpgroup.arrive is injected in around line 257 by compiler to "
+     "allow use of registers in GMMA in", PROBE),
+])
+def test_wgmma_notes(code, text, fn):
+    """Each note is kept under its kernel's short name; phase 2 fails when
+    a note of count_kernel says its products were serialised."""
+    line = f"ptxas info    : ({code}) {text} function '{fn}'"
+    notes = cs.wgmma_notes("ptxas info    : Used 96 registers\n" + line)
+    name = cs.kernel_name(fn)
+    assert list(notes) == [name]
+    assert notes[name][0].startswith(code)
+    assert ("serialized" in notes[name][0]) == (code == "C7514")
+
+
+def test_ptxas_report_reads_registers_spills_and_shared():
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{K1}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {K1}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 16 barriers, 1024 bytes smem",
+        f"ptxas info    : Function properties for {PROBE}",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 94 registers, used 1 barriers",
+    ])
+    assert cs.ptxas_report(log) == {"count_kernel": [96, 0, 0, 1024],
+                                    "wgmma_rate_kernel": [94, 4, 12, 0]}
+
+
+def test_k1_is_held_to_wgmma_and_its_edges():
+    """K1 must compile to IGMMA; the wgmma probe measures the product K1
+    issues; phase 3b's count edges straddle its m64 tiles and 256-query
+    blocks and are ragged against its 128-row database tiles."""
+    assert cs.TC_KERNELS["count_kernel"] == "IGMMA"
+    fn, kind, _, _, m, n, k, _, issuers = cs.PROBE_KERNELS[
+        "s8 wgmma m64n128k32"]
+    assert (fn, kind, m, n, k, issuers) == ("wgmma_rate_kernel", 2, 64, 128,
+                                            32, 2)
+    assert {63, 64, 65, 255, 257} <= set(cs.COUNT_EDGE_NQ)
+    assert all(nd % 128 for nd in cs.COUNT_EDGE_ND)

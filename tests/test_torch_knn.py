@@ -124,25 +124,110 @@ def _db_tile(db, t0, hi, steps):
     return _onehot_rows(tile, 32 * steps)
 
 
-def _count_model(q, db, length, editdist):
+#: the count kernel's block: 256 queries, one m64 tile of 64 queries to
+#: each of its four consumer warpgroups; database tiles of 128 rows
+COUNT_BLOCK, COUNT_M_TILE, COUNT_TILE = 256, 64, 128
+
+
+def _block_bases(block):
+    """The last valid base of any query of a block, plus 1; 0 if none."""
+    valid = np.flatnonzero((block < 4).any(0))
+    return int(valid[-1]) + 1 if valid.size else 0
+
+
+def _wgmma_rows(codes, k_bytes):
+    """(n, k_bytes) int32 one-hot rows as the wgmma count decodes a packed
+    row: 16-byte chunk c holds bases 4c..4c+3 code-major, byte 4k + b being
+    1 iff base 4c + b is valid with code k.  Built as the kernel builds it:
+    the row's four code planes (bit 2i of plane k set iff base i is valid
+    with code k), each byte of a plane spread to a word by one multiply by
+    0x41041 and a mask."""
+    packed = pack_codes(torch.from_numpy(codes)).numpy().view(np.uint64)
+    rows = np.zeros((codes.shape[0], k_bytes), np.int32)
+    for h in range(2):
+        x = (packed[:, 0] >> np.uint64(32 * h)) & np.uint64(0xffffffff)
+        v = (packed[:, 1] >> np.uint64(32 * h)) & np.uint64(0xffffffff)
+        hi = (x >> np.uint64(1)) & np.uint64(0x55555555)
+        nx, nhi = ~x & np.uint64(0xffffffff), ~hi & np.uint64(0xffffffff)
+        planes = [v & nhi & nx, v & nhi & x, v & hi & nx, v & hi & x]
+        for j in range(4):
+            c = 4 * h + j
+            if 16 * c >= k_bytes:
+                break
+            for k, plane in enumerate(planes):
+                b = (plane >> np.uint64(8 * j)) & np.uint64(0x55)
+                w = (b * np.uint64(0x41041)) & np.uint64(0x01010101)
+                for byte in range(4):
+                    rows[:, 16 * c + 4 * k + byte] = (
+                        w >> np.uint64(8 * byte)) & np.uint64(1)
+    return rows
+
+
+def _count_model(q, db, length, editdist, n_splits=1, pad_bias=True):
     """csrc/hamming_count.cu's arithmetic in numpy: per block of 256
-    queries, one-hot rows of K = 32 * ceil(nb / 8) bytes (nb: the last valid
-    base of any query of the block, plus 1; base i is the little-endian
-    word ``valid << 8 * code`` at bytes 4i..4i+3), database tiles of 128
-    rows zero-padded at the ragged edge, an int32 product started at
-    -(thresh + 1), and a count of the sums >= 0."""
+    queries with nb bases (the last valid base of any of its queries, plus
+    1), one-hot rows of K = 32 KS bytes, KS = ceil(nb / 8), in the kernel's
+    code-major order (:func:`_wgmma_rows`); database splits of whole
+    128-row tiles, the ragged tile's rows past the split zero rows; per m64
+    tile of queries and database tile an int32 product, and a count of the
+    sums >= 0.  When nb % 8 != 0, base slot 8 KS - 1 is unused by every
+    query of the block and is the bias lane: its code-0 byte, K byte
+    32 KS - 13, holds -(thresh + 1) in every query row and 1 in every
+    database row, padding rows included unless ``pad_bias`` is false, and
+    the product starts at 0; otherwise (no spare lane) the sums start at
+    -(thresh + 1).  Returns the counts and the set of paths the blocks took
+    ("bias", "init")."""
     thresh = length - editdist
+    nd = db.shape[0]
+    tiles = -(-nd // COUNT_TILE)
+    per_split = -(-tiles // n_splits) * COUNT_TILE
     out = np.zeros(q.shape[0], np.int32)
-    for b0 in range(0, q.shape[0], 256):
-        block = q[b0:b0 + 256]
-        steps = _block_steps(block)
-        if steps == 0:
+    paths = set()
+    for b0 in range(0, q.shape[0], COUNT_BLOCK):
+        block = q[b0:b0 + COUNT_BLOCK]
+        nb = _block_bases(block)
+        if nb == 0:
             continue
-        a = _onehot_rows(block, 32 * steps)
-        for t0 in range(0, db.shape[0], 128):
-            acc = a @ _db_tile(db, t0, db.shape[0], steps).T - (thresh + 1)
-            out[b0:b0 + 256] += (acc >= 0).sum(1, dtype=np.int32)
-    return out
+        k_bytes = 32 * -(-nb // 8)
+        lane = k_bytes - 13
+        bias_lane = nb % 8 != 0
+        paths.add("bias" if bias_lane else "init")
+        a = _wgmma_rows(block, k_bytes)
+        if bias_lane:
+            assert not a[:, lane].any()
+            a[:, lane] = -(thresh + 1)
+        for lo in range(0, nd, per_split):
+            hi = min(nd, lo + per_split)
+            for t0 in range(lo, hi, COUNT_TILE):
+                tile = np.full((COUNT_TILE, db.shape[1]), dna.INVALID,
+                               np.uint8)
+                rows = min(COUNT_TILE, hi - t0)
+                tile[:rows] = db[t0:t0 + rows]
+                b = _wgmma_rows(tile, k_bytes)
+                if bias_lane:
+                    b[:COUNT_TILE if pad_bias else rows, lane] = 1
+                for m0 in range(0, block.shape[0], COUNT_M_TILE):
+                    am = a[m0:m0 + COUNT_M_TILE]
+                    acc = am @ b.T
+                    if not bias_lane:
+                        acc -= thresh + 1
+                    assert -128 <= acc.min() and acc.max() <= 127
+                    out[b0 + m0:b0 + m0 + am.shape[0]] += (acc >= 0).sum(
+                        1, dtype=np.int32)
+    return out, paths
+
+
+def test_wgmma_rows_are_one_hot():
+    """The plane-and-multiply decode gives every valid base one 1, at the
+    byte of its code in its chunk, and an N or a base past L nothing."""
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 5, size=(500, 32)).astype(np.uint8)
+    codes[:100, 20:] = dna.INVALID
+    rows = _wgmma_rows(codes, 128)
+    want = np.zeros_like(rows)
+    r, i = np.nonzero(codes < 4)
+    want[r, 16 * (i // 4) + 4 * codes[r, i] + i % 4] = 1
+    np.testing.assert_array_equal(rows, want)
 
 
 @pytest.mark.parametrize("length", COUNT_EDGE_LENGTHS)
@@ -159,10 +244,58 @@ def test_count_kernel_model_matches_plain(length):
         want = hamming_count_plain(pack_codes(torch.from_numpy(q)),
                                    pack_codes(torch.from_numpy(db)), length,
                                    editdist).numpy()
-        np.testing.assert_array_equal(_count_model(q, db, length, editdist),
+        np.testing.assert_array_equal(_count_model(q, db, length,
+                                                   editdist)[0],
                                       want, err_msg=f"editdist {editdist}")
         if editdist == 0:
             assert not want.any()
+
+
+def _count_model_paths(length):
+    """The paths of the two blocks of test_count_model_matches_plain_and_jax:
+    the first's last valid base is L - 1, the second's max(1, L - 9) - 1;
+    a block takes the bias lane unless its bases fill its K."""
+    return {"init" if nb % 8 == 0 else "bias"
+            for nb in (length, max(1, length - 9))}
+
+
+@pytest.mark.parametrize("n_splits", [1, 3])
+@pytest.mark.parametrize("length", COUNT_EDGE_LENGTHS)
+def test_count_model_matches_plain_and_jax(length, n_splits):
+    """The wgmma count's arithmetic (the bias lane where a base slot is
+    spare, the initialised sums where none is: L 8, 24 and 32, and L 25's
+    second block with 16 bases), its 256-query blocks and m64 tiles ragged
+    (300 queries), a database ragged against its 128-row tiles and splits
+    (333 rows) whose padding rows carry the bias lane, N bases, duplicated
+    rows and an all-N query, against ``hamming_count_plain`` and the JAX
+    package's streaming count, at every editdist edge."""
+    from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
+    rng = np.random.default_rng(300 + length)
+    q, db = _codes(rng, 300, 333, length)
+    q[256:, max(1, length - 9):] = dna.INVALID
+    qt, dbt = (pack_codes(torch.from_numpy(x)) for x in (q, db))
+    for editdist in _edge_editdists(length):
+        want = hamming_count_plain(qt, dbt, length, editdist).numpy()
+        got, paths = _count_model(q, db, length, editdist, n_splits)
+        np.testing.assert_array_equal(got, want, err_msg=f"e {editdist}")
+        assert paths == _count_model_paths(length)
+        ref = stream_count_device(q, prepare_db_codes(db, 128), 333,
+                                  editdist, length, db_tile=128, q_tile=32)
+        np.testing.assert_array_equal(want, ref, err_msg=f"e {editdist}")
+        if editdist == 0:
+            assert not want.any()
+
+
+def test_count_model_padding_rows_need_the_bias_lane():
+    """A padding row past the split without the bias lane's 1 sums to 0
+    with every query and so would count for each: the kernel's padding
+    rows carry the lane (130 rows: the second tile has 126 of them)."""
+    rng = np.random.default_rng(11)
+    q, db = _codes(rng, 70, 130, 20)
+    good, paths = _count_model(q, db, 20, 2)
+    bad, _ = _count_model(q, db, 20, 2, pad_bias=False)
+    assert paths == {"bias"}
+    np.testing.assert_array_equal(bad - good, np.full(70, 126))
 
 
 #: k at the top-k kernel's list edges: kcap 1, 2, 4, 8, 32 and 128
@@ -549,6 +682,34 @@ def test_count_kernel_edges_on_card(cuda_device, L):
             assert torch.equal(
                 stream.hamming_count(q[:nq], db, L, editdist),
                 hamming_count_plain(q[:nq], db, L, editdist)), (nq, editdist)
+
+
+#: query counts at the wgmma count's edges: m64 tiles (63, 64, 65) and
+#: 256-query blocks (255, 257)
+WGMMA_EDGE_NQ = (1, 63, 64, 65, 255, 257, 4095)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", COUNT_EDGE_LENGTHS)
+def test_count_kernel_wgmma_edges_on_card(cuda_device, L):
+    """K1's wgmma design at its edges: m64 tiles and query blocks
+    (WGMMA_EDGE_NQ), databases ragged against the 128-row tile (129 and
+    200,003 rows), a block ending in N and an all-N block, the bias lane
+    and the initialised path (L 8, 24, 32), every editdist edge."""
+    from guidemaker_tpu_torch.knn.hamming import hamming_count_plain
+    rng = np.random.default_rng(400 + L)
+    qn, dbn = _codes(rng, max(WGMMA_EDGE_NQ), 200_003, L)
+    qn[256:512, max(1, L - 9):] = dna.INVALID
+    qn[512:768] = dna.INVALID
+    q = pack_codes(torch.from_numpy(qn).to(cuda_device))
+    db = pack_codes(torch.from_numpy(dbn).to(cuda_device))
+    for nd in (129, 200_003):
+        for nq in WGMMA_EDGE_NQ:
+            for editdist in _edge_editdists(L):
+                assert torch.equal(
+                    stream.hamming_count(q[:nq], db[:nd], L, editdist),
+                    hamming_count_plain(q[:nq], db[:nd], L, editdist)), (
+                        nd, nq, editdist)
 
 
 @pytest.mark.cuda
