@@ -12,18 +12,18 @@ Phases, one line each; any failure exits non-zero:
    source, all started together; ptxas's registers, spills and static
    shared memory for every kernel (each kcap of the top-k) and its wgmma
    notes, and by ``cuobjdump -sass`` the tensor-core instructions: IGMMA
-   (int8 wgmma) in the 2-bit count, which may hold no IMMA and whose
-   products ptxas may not serialise, IMMA (int8 mma.sync) in the packed
-   count and every kcap of the 2-bit and packed top-k kernels, BMMA
+   (int8 wgmma) in the 2-bit and the packed count, which may hold no IMMA
+   and whose products ptxas may not serialise, IMMA (int8 mma.sync) in
+   every kcap of the 2-bit and packed top-k kernels, BMMA
    (1-bit) in the 3-gram count at each of its 8 k256 step counts, none
    with POPC or IDP4A (dp4a), and none may spill on the main path (the
-   counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); the 2-bit
-   count's LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP counts;
+   counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); both wgmma
+   counts' LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP counts;
    then the tensor-core rate probe (csrc/mma_rate.cu): s8 m16n8k32 and b1
    m16n8k256 mma.sync chains and the s8 wgmma m64n128k32 chain the 2-bit
    count issues, each kind's operations a second and SASS opcode, from the
    mma.sync ratio the card's 1-bit rate that the 3-gram count's bound
-   uses, and the wgmma rate that phase 5 reads the 2-bit count against;
+   uses, and the wgmma rate that phase 5 reads both counts against;
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
@@ -36,18 +36,20 @@ Phases, one line each; any failure exits non-zero:
    nd 200,003; a query block ending in N and an all-N block; editdist 0-3
    and L; k 1, 2, 3, 5, 20 and 128);
    3d, the packed count and top-k kernels at their tiling's edges (L 1,
-   10, 11, 16, 20 and 21; nq 1, 15 and 4095; nd 200,002 and 200,003;
-   editdist 0-3, the first with 3L - 4 editdist + 1 <= 0, and L; k 1, 2,
-   3, 5, 20 and 128);
+   10, 11, 16, 20 and 21; for the count nq 1, 63, 64, 65, 255, 256, 257
+   and 4095 (m64 tiles, 256-query blocks), for the top-k nq 1, 15 and
+   4095; nd 200,002 and 200,003; editdist 0-3, the first with
+   3L - 4 editdist + 1 <= 0, and L; k 1, 2, 3, 5, 20 and 128);
 4. the C. ruddii parity configuration (tests/test_parity_e2e.py) on the
    card, byte for byte against tests/test_data/golden_pretty_cruddii.csv.gz;
 5. P. aeruginosa retention (NGG/5prime/20, all unique guides against all,
    dist 2) in both index layouts: 1,139,266 guides retained each time, and
    the 2-bit and packed count kernels equal to their plain versions, and
    to each other, at full size, each kernel's time against its bound and
-   the 2-bit count's also against its one-hot product at the probe's
-   wgmma rate; then the 2-bit count at the control search's triage shape
-   (2^19 random candidates against the index, editdist 7 and 2);
+   against the product it issues at the probe's wgmma rate (the 2-bit
+   count's one-hot rows, K 96; the packed count's tetrahedral B rows,
+   K 64); then each at the control search's triage shape (2^19 random
+   candidates against the index, editdist 7 and 2, exact on 4,096 rows);
 6. the default P. aeruginosa design run with --controls 1000 and a fixed
    --seed, through the CLI's parser and ``run_pipeline``, in the 2-bit
    layout: its stage table, its rows, its neighbor lists against the
@@ -220,10 +222,16 @@ COUNT_EDGE_ND = (129, 200_003)
 #: the top-k's list edges (phase 3b): kcap 1, 2, 4, 8, 32 and 128
 EDGE_KS = (1, 2, 3, 5, 20, 128)
 #: the packed kernels' tiling edges (phase 3d): guide lengths at their k32
-#: step edges (3L straddles a step everywhere, 3L = 63 at L 21), and
-#: databases ragged against their 128-row tiles, even and odd
+#: step edges (the top-k's 3L straddles a step everywhere, 3L = 63 at L 21;
+#: the count's K = 32 ceil((3L + 1) / 32) steps from 1 to 2 at L 10/11,
+#: and 3L % 4, the shift of its odd B rows, takes each value), and
+#: databases ragged against their tiles (128 pair rows for the top-k, 64
+#: for the count), even and odd
 PACKED_EDGE_LENGTHS = (1, 10, 11, 16, 20, 21)
 PACKED_EDGE_ND = (200_002, 200_003)
+#: the packed count's query edges (phase 3d): its m64 tiles (63, 64, 65)
+#: and 256-query blocks (255, 256, 257)
+PACKED_COUNT_EDGE_NQ = (1, 63, 64, 65, 255, 256, 257, 4095)
 #: the 3-gram count's tiling edges (phase 3c): row widths G = L - 2 words
 #: at its k256 step edges (a step is 4 words; 1..8 steps)
 FEATURE_EDGE_WORDS = (1, 4, 5, 8, 17, 18, 25, 29, 30)
@@ -520,11 +528,12 @@ def phase_packed_kernels(pcount, ptopk, dev):
 
 def phase_packed_edges(pcount, ptopk, dev):
     """The packed count and top-k kernels against their plain versions at
-    their tiling's edges: k32 steps (PACKED_EDGE_LENGTHS), query blocks
-    (EDGE_NQ), databases ragged against their tiles with an odd slot left
-    over or not (PACKED_EDGE_ND), every editdist edge (0-3, the first with
-    T + 1 <= 0, where a zero slot passes the count's gate, and L) and
-    every list edge (EDGE_KS)."""
+    their tiling's edges: k32 steps (PACKED_EDGE_LENGTHS), query tiles and
+    blocks (PACKED_COUNT_EDGE_NQ for the count, EDGE_NQ for the top-k),
+    databases ragged against their tiles with an odd slot left over or not
+    (PACKED_EDGE_ND), every editdist edge (0-3, the first with T + 1 <= 0,
+    where a padding slot passes the count's gate, and L) and every list
+    edge (EDGE_KS)."""
     from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn import stream
     rng = np.random.default_rng(98)
@@ -534,11 +543,11 @@ def phase_packed_edges(pcount, ptopk, dev):
         edits = sorted({e for e in (0, 1, 2, 3, first_neg, length)
                         if e <= length})
         for nd in PACKED_EDGE_ND:
-            qn, dbn = random_codes(rng, max(EDGE_NQ), nd, length,
-                                   with_n=False)
+            qn, dbn = random_codes(rng, max(PACKED_COUNT_EDGE_NQ), nd,
+                                   length, with_n=False)
             q = pk.query_rows(torch.from_numpy(qn).to(dev))
             db = pk.db_rows(torch.from_numpy(dbn).to(dev))
-            for nq in EDGE_NQ:
+            for nq in PACKED_COUNT_EDGE_NQ:
                 for e in edits:
                     pcount.compare(
                         stream.packed_count(q[:nq], db, nd, length, e),
@@ -546,6 +555,7 @@ def phase_packed_edges(pcount, ptopk, dev):
                         f"packed count L={length} nd={nd} nq={nq} "
                         f"editdist={e}")
                     n_count += 1
+            for nq in EDGE_NQ:
                 for k in EDGE_KS:
                     ptopk.compare(
                         stream.packed_topk(q[:nq], db, nd, length, k),
@@ -554,8 +564,9 @@ def phase_packed_edges(pcount, ptopk, dev):
                     n_topk += 1
     say(f"phase 3d packed count and top-k kernels vs plain at their tiling "
         f"edges: exact in {n_count} and {n_topk} comparisons, L "
-        f"{PACKED_EDGE_LENGTHS}, nq {EDGE_NQ}, nd {PACKED_EDGE_ND}, "
-        f"editdist 0,1,2,3,ceil((3L+1)/4),L, k {EDGE_KS}")
+        f"{PACKED_EDGE_LENGTHS}, nq {PACKED_COUNT_EDGE_NQ} (count) and "
+        f"{EDGE_NQ} (top-k), nd {PACKED_EDGE_ND}, editdist "
+        f"0,1,2,3,ceil((3L+1)/4),L, k {EDGE_KS}")
 
 
 def leven_codes(rng, nq, nd, length):
@@ -746,21 +757,21 @@ def phase_retention(count, pcount, dev, uniq, t_host, wgmma_rate):
         bound = kern.timed(ms, plain_ms, hamming_ops(n, n, 20),
                            INT8_OPS_PER_S, q.numel() * q.element_size()
                            + db.numel() * db.element_size() + 4 * n)
-        # the one-hot product K1 issues: 3 k32 steps of 32 bytes at L 20
-        onehot = (f"; its one-hot product (2 n^2 x 96 operations) at the "
-                  f"probe's wgmma rate "
-                  f"{2 * n * n * 96 / wgmma_rate * 1e3:.2f} ms, "
-                  f"{2 * n * n * 96 / wgmma_rate * 1e3 / ms:.4f} of the "
-                  f"kernel's time" if not packed else "")
+        # the product the kernel issues at L 20: K1's one-hot rows, 3 k32
+        # steps of 32 bytes; K4's tetrahedral B rows, 2 steps
+        k_bytes = 64 if packed else 96
+        name = "tetrahedral" if packed else "one-hot"
+        product_ms = 2 * n * n * k_bytes / wgmma_rate * 1e3
         say(f"phase 5 P. aeruginosa retention, {layout} layout: {retained} of "
             f"{n} guides retained (expected {PA_RETAINED}); kernel == plain "
             f"at {n} x {n}; kernel {ms:.3f} ms ({n * n / ms / 1e9:.4f} T "
-            f"pairs/s, {bound / ms:.3f} of its {bound:.2f} ms int8 bound"
-            f"{onehot}), plain {plain_ms:.3f} ms; pass_distance_filter "
-            f"{t_filter:.3f} s")
-        if not packed:
-            control_chunk_times(count, db)
-        del idx, db, got, want
+            f"pairs/s, {bound / ms:.3f} of its {bound:.2f} ms int8 bound; "
+            f"its {name} product (2 n^2 x {k_bytes} operations) at the "
+            f"probe's wgmma rate {product_ms:.2f} ms, "
+            f"{product_ms / ms:.4f} of the kernel's time), plain "
+            f"{plain_ms:.3f} ms; pass_distance_filter {t_filter:.3f} s")
+        control_chunk_times(kern, db, n, packed)
+        del idx, q, db, got, want
     pcount.compare(counts["packed"], counts["2-bit"],
                    "P. aeruginosa packed count == 2-bit count")
     say(f"phase 5 packed count vector == 2-bit count vector; parse+scan "
@@ -768,30 +779,40 @@ def phase_retention(count, pcount, dev, uniq, t_host, wgmma_rate):
     return masks["2-bit"], counts["2-bit"]
 
 
-def control_chunk_times(count, db):
-    """K1 at the control search's triage shape: one chunk of 2^19 random
-    candidates (targets.py:_control_chunk_rows) against the index, at the
-    triage's editdist 7 and at retention's 2; each equal to the plain count
-    on its first 4,096 rows, with its time and its bound."""
+def control_chunk_times(kern, db, nd, packed):
+    """The count kernel of a layout (K1, or K4 if ``packed``) at the control
+    search's triage shape: one chunk of 2^19 random candidates
+    (targets.py:_control_chunk_rows) against the index's nd guides (rows
+    ``db``), at the triage's editdist 7 and at retention's 2; each equal to
+    the plain count on its first 4,096 rows, with its time and its
+    bound."""
+    from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.hamming import (hamming_count_plain,
                                                   pack_codes)
     rng = np.random.default_rng(SEED)
-    q = pack_codes(torch.from_numpy(rng.integers(
-        0, 4, size=(1 << 19, 20)).astype(np.uint8)).to(db.device))
-    nq, nd = q.shape[0], db.shape[0]
+    codes = torch.from_numpy(rng.integers(
+        0, 4, size=(1 << 19, 20)).astype(np.uint8)).to(db.device)
+    if packed:
+        q = pk.query_rows(codes)
+        run = lambda q, e: stream.packed_count(q, db, nd, 20, e)  # noqa
+        plain = lambda q, e: pk.packed_count_plain(q, db, nd, 20, e)  # noqa
+    else:
+        q = pack_codes(codes)
+        run = lambda q, e: stream.hamming_count(q, db, 20, e)  # noqa: E731
+        plain = lambda q, e: hamming_count_plain(q, db, 20, e)  # noqa: E731
+    nq = q.shape[0]
     parts = []
     for e in (7, 2):
-        got = stream.hamming_count(q, db, 20, e)
-        count.compare(got[:4096], hamming_count_plain(q[:4096], db, 20, e),
-                      f"control chunk count editdist {e}")
-        ms = cuda_ms(lambda e=e: stream.hamming_count(q, db, 20, e), 3)
+        kern.compare(run(q, e)[:4096], plain(q[:4096], e),
+                     f"control chunk {kern.row['name']} editdist {e}")
+        ms = cuda_ms(lambda e=e: run(q, e), 3)
         bound = bound_ms(hamming_ops(nq, nd, 20), INT8_OPS_PER_S, 0)[0]
         parts.append(f"editdist {e} {ms:.3f} ms ({nq * nd / ms / 1e9:.4f} "
                      f"T pairs/s, {bound / ms:.3f} of its {bound:.2f} ms "
                      f"bound)")
-    say(f"phase 5 K1 at the control triage's shape, {nq} x {nd}, exact on "
-        f"4096 rows: " + "; ".join(parts))
+    say(f"phase 5 {'K4' if packed else 'K1'} at the control triage's shape, "
+        f"{nq} x {nd}, exact on 4096 rows: " + "; ".join(parts))
 
 
 class StageGrab(logging.Handler):
@@ -1808,6 +1829,13 @@ def wgmma_notes(log: str):
     return out
 
 
+#: the count kernels on wgmma (K1 and K4): IGMMA and no IMMA in their SASS,
+#: no serialisation note from ptxas, and each one's instantiations (phase
+#: 2 prints their logic, barrier and warpgroup counts)
+WGMMA_KERNELS = {"count_kernel": "k32 steps 1-4, bias lane or not",
+                 "packed_count_kernel": "L 1-21 producers, k32 steps 1-2"}
+
+
 def tc_kernels(kcaps):
     """The 2-bit and packed count kernels, and the 2-bit and packed top-k
     kernels at each of ``kcaps``."""
@@ -1829,7 +1857,7 @@ def feature_kernels(steps):
 TC_KERNELS = {**{fn: "IMMA" for fn in tc_kernels((1, 2, 4, 8, 16, 32, 64,
                                                    128))},
               **{fn: "BMMA" for fn in feature_kernels(range(1, 9))},
-              "count_kernel": "IGMMA"}
+              **{fn: "IGMMA" for fn in WGMMA_KERNELS}}
 NO_SPILL_KERNELS = tc_kernels((1, 2, 4, 8)) + feature_kernels(range(1, 6))
 #: the tensor-core rate probe's kernel for each kind (csrc/mma_rate.cu):
 #: (kernel, gm_mma_rate kind, blocks an SM, iterations, M, N, K of one
@@ -1842,10 +1870,12 @@ PROBE_KERNELS = {
                             2)}
 #: the opcodes phase 2 counts: tensor-core products (IGMMA: int8 wgmma),
 #: and the CUDA-core popcount and dp4a (``IDP.4A``) that a tensor-core
-#: kernel must not hold; for K1 also the logic, the barriers (BAR: named
-#: and block barriers, SYNCS: mbarriers) and the warpgroup fences and waits
+#: kernel must not hold; for the wgmma counts also the logic, the barriers
+#: (BAR: named and block barriers, SYNCS: mbarriers) and the warpgroup
+#: fences and waits
 SASS_OPS = ("IMMA", "BMMA", "IGMMA", "POPC", "IDP")
-K1_SASS_OPS = ("IGMMA", "LOP3", "SHF", "IMAD", "BAR", "SYNCS", "WARPGROUP")
+WGMMA_SASS_OPS = ("IGMMA", "LOP3", "SHF", "IMAD", "BAR", "SYNCS",
+                  "WARPGROUP")
 
 
 def kernel_sass(lib: str):
@@ -1864,7 +1894,7 @@ def kernel_sass(lib: str):
         if fn in wanted:
             ops = [w.split(".")[0] for w in part.split()]
             out[fn] = {op: ops.count(op)
-                       for op in dict.fromkeys(SASS_OPS + K1_SASS_OPS)}
+                       for op in dict.fromkeys(SASS_OPS + WGMMA_SASS_OPS)}
     return out
 
 
@@ -1935,9 +1965,10 @@ def main() -> int:
     with open(lib[:-3] + ".log") as fh:
         notes = wgmma_notes(fh.read())
     say(f"  ptxas wgmma notes: {notes or 'none'}")
-    if any("serialized" in n for n in notes.get("count_kernel", [])):
-        raise AssertionError(f"count_kernel: ptxas serialised its wgmma "
-                             f"products: {notes['count_kernel']}")
+    for fn in WGMMA_KERNELS:
+        if any("serialized" in n for n in notes.get(fn, [])):
+            raise AssertionError(f"{fn}: ptxas serialised its wgmma "
+                                 f"products: {notes[fn]}")
     sass = kernel_sass(lib)
     for fn, op in TC_KERNELS.items():
         ops = sass.get(fn, {})
@@ -1951,11 +1982,11 @@ def main() -> int:
     say("  SASS (cuobjdump): " + ", ".join(
         f"{fn} {sass[fn][op]} {op} {sass[fn]['POPC']} POPC "
         f"{sass[fn]['IDP']} IDP4A" for fn, op in TC_KERNELS.items()))
-    if sass["count_kernel"]["IMMA"]:
-        raise AssertionError("count_kernel SASS holds mma.sync (IMMA)")
-    say("  SASS count_kernel (8 instantiations: k32 steps 1-4, bias lane or "
-        "not): " + ", ".join(f"{sass['count_kernel'][op]} {op}"
-                             for op in K1_SASS_OPS))
+    for fn, parts in WGMMA_KERNELS.items():
+        if sass[fn]["IMMA"]:
+            raise AssertionError(f"{fn} SASS holds mma.sync (IMMA)")
+        say(f"  SASS {fn} ({parts}): " + ", ".join(
+            f"{sass[fn][op]} {op}" for op in WGMMA_SASS_OPS))
     rates = mma_rates(dev, sass)
     b1_peak = rates["b1 m16n8k256"] / rates["s8 m16n8k32"] * INT8_OPS_PER_S
     count = Kernel("hamming_count",

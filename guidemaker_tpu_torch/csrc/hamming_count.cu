@@ -24,23 +24,19 @@
 //     4c + 3 code-major: byte 4k + b is 1 iff base 4c + b is valid with code
 //     k (any order of K gives the same product, as long as queries and
 //     database share it; this one decodes with a multiply a word);
-//   * block: one producer warpgroup and four consumer warpgroups (640
-//     threads, one block an SM; setmaxnreg gives the consumers the
-//     registers the producer does not need).  Each consumer holds 64
-//     queries, one m64 tile, as wgmma A fragments in registers for the
-//     whole database walk, so each database tile feeds 256 queries;
+//   * block: wgmma_common.cuh's ring block, one producer warpgroup and
+//     four consumer warpgroups (640 threads, one block an SM; setmaxnreg
+//     gives the consumers the registers the producer does not need).  Each
+//     consumer holds 64 queries, one m64 tile, as wgmma A fragments in
+//     registers for the whole database walk, so each database tile feeds
+//     256 queries;
 //   * a ring of kStages database tiles of 128 rows in shared memory: each
 //     producer thread loads one packed 16-byte row (prefetched a tile
 //     ahead; the 2-bit database stays in L2) and decodes it into the
 //     K-major core-matrix layout that wgmma reads B from
-//     (wgmma_common.cuh), then signals the tile's `full` mbarrier; every
-//     consumer signals its `empty` mbarrier when its product with the tile
-//     is done;
+//     (wgmma_common.cuh);
 //   * product: per tile, KS wgmma m64n128k32 s8 x s8 -> s32 in one commit
-//     group.  The consumers take turns to issue (a ring of named barriers),
-//     so that while one thresholds its sums the others' products keep the
-//     tensor pipe busy; left to themselves they wait on the same tile and
-//     threshold at the same time;
+//     group, the consumers taking turns to issue;
 //   * the threshold as part of the product: when the block's bases leave a
 //     base slot of its K unused (nb % 8 != 0, every 20-mer block), slot
 //     8 KS - 1 is a bias lane: -(thresh + 1) at its code-0 byte in every
@@ -50,11 +46,11 @@
 //     valid base fills their K (L 8, 16, 24, 32 with a valid last base) set
 //     the accumulators to -(thresh + 1) before each product instead, one
 //     more operation a pair;
-//   * epilogue: a thread ANDs the 32 sums of each of its two query rows:
-//     if the sign bit survives, none counts (the common case: close pairs
-//     are rare), else the row counts its sums >= 0, one shift-add a sum
-//     and only for that row, so a larger editdist, where more rows count,
-//     costs little;
+//   * epilogue (gm::count_tile): a thread ANDs the 32 sums of each of its
+//     two query rows: if the sign bit survives, none counts (the common
+//     case: close pairs are rare), else the row counts its sums >= 0, one
+//     shift-add a sum and only for that row, so a larger editdist, where
+//     more rows count, costs little;
 //   * the database is cut into gridDim.y splits of whole tiles so that
 //     small query sets still fill the card; each split adds its per-query
 //     counts, summed over the quad, with one integer atomicAdd, so the
@@ -68,30 +64,20 @@
 
 namespace {
 
+using gm::kConsumers;
 using gm::kQPerBlock;
 using gm::kTile;
+using gm::kWarpgroup;
 
-constexpr int kWarpgroup = 128;
-constexpr int kConsumers = 4;
-constexpr int kBlockThreads = kWarpgroup * (1 + kConsumers);
-constexpr int kStages = 4;
 // bytes of one ring stage: kTile rows of at most 4 k32 steps
 constexpr int kStageBytes = kTile * 32 * gm::kMaxSteps;
-constexpr int kRingBytes = kStages * kStageBytes;
-// the ring, then the `full` and the `empty` mbarrier of each stage
-constexpr int kSmemBytes = kRingBytes + 2 * 8 * kStages;
-// registers a thread of the producer and of a consumer warpgroup, within
-// the block's allocation (65,536 / 640 threads, rounded down to 96)
+constexpr int kSmemBytes = gm::ring_smem_bytes(kStageBytes);
+// registers a thread of the producer and of a consumer warpgroup
 constexpr int kProducerRegs = 32;
 constexpr int kConsumerRegs = 112;
 
 static_assert(kQPerBlock == kConsumers * 64, "one m64 tile a consumer");
 static_assert(kTile == kWarpgroup, "one producer thread a tile row");
-static_assert((kStages & (kStages - 1)) == 0, "a power-of-two ring");
-static_assert((kConsumers & (kConsumers - 1)) == 0, "a power-of-two turn");
-static_assert(kWarpgroup * (kProducerRegs + kConsumers * kConsumerRegs) <=
-                  kBlockThreads * 96,
-              "the block's registers");
 
 // Bases of the block: the last valid base of any of its queries, plus 1;
 // 0 when none has a valid base.  Every thread of the block calls it; *nb
@@ -145,30 +131,31 @@ __device__ __forceinline__ void produce(const ulonglong2* __restrict__ db,
   const ulonglong2 zero = make_ulonglong2(0ull, 0ull);
   const int p = threadIdx.x;
   const int n_tiles = (hi - lo + kTile - 1) / kTile;
-  uint8_t* row_base = ring + (p >> 3) * (256 * KS) + (p & 7) * 16;
-  ulonglong2 next = lo + p < hi ? db[lo + p] : zero;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & (kStages - 1);
-    const ulonglong2 row = next;
-    const int r = lo + (t + 1) * kTile + p;
-    next = r < hi ? db[r] : zero;
-    gm::mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
-    uint4* dst = reinterpret_cast<uint4*>(row_base + st * kStageBytes);
-    uint32_t m[4][2];
-    code_planes(row, m);
+  const int row_off = (p >> 3) * (256 * KS) + (p & 7) * 16;
+  ulonglong2 row, next = lo + p < hi ? db[lo + p] : zero;
+  gm::produce_tiles<kStageBytes>(
+      n_tiles, ring, full, empty,
+      [&](int t) {
+        row = next;
+        const int r = lo + (t + 1) * kTile + p;
+        next = r < hi ? db[r] : zero;
+      },
+      [&](uint8_t* stage) {
+        uint4* dst = reinterpret_cast<uint4*>(stage + row_off);
+        uint32_t m[4][2];
+        code_planes(row, m);
 #pragma unroll
-    for (int c = 0; c < 2 * KS; ++c) {
-      uint32_t w0 = spread(m[0][c >> 2], c & 3);
-      // the bias lane: code-0 byte of base 8 KS - 1, byte 3 of word 0 of
-      // the last chunk
-      if (kBias && c == 2 * KS - 1) w0 = (w0 & 0x00ffffffu) | 0x01000000u;
-      dst[8 * c] = make_uint4(w0, spread(m[1][c >> 2], c & 3),
-                              spread(m[2][c >> 2], c & 3),
-                              spread(m[3][c >> 2], c & 3));
-    }
-    gm::fence_proxy_async();
-    gm::mbar_arrive(full + 8 * st);
-  }
+        for (int c = 0; c < 2 * KS; ++c) {
+          uint32_t w0 = spread(m[0][c >> 2], c & 3);
+          // the bias lane: code-0 byte of base 8 KS - 1, byte 3 of word 0
+          // of the last chunk
+          if (kBias && c == 2 * KS - 1)
+            w0 = (w0 & 0x00ffffffu) | 0x01000000u;
+          dst[8 * c] = make_uint4(w0, spread(m[1][c >> 2], c & 3),
+                                  spread(m[2][c >> 2], c & 3),
+                                  spread(m[3][c >> 2], c & 3));
+        }
+      });
 }
 
 // The m64 tile's product with the ring stage at descriptor desc, KS k32
@@ -187,34 +174,6 @@ __device__ __forceinline__ void product(int (&d)[64],
   for (int s = 0; s < KS; ++s)
     gm::wgmma_m64n128k32_s8(d, a[s], desc + 16 * s, kBias && s == 0 ? 0 : 1);
   gm::wgmma_commit();
-}
-
-// The count epilogue of the m64 tile's sums: a pair counts iff its sum is
-// >= 0.  Query row 8 h + g of the warp's 16 holds d[4j + 2h + c] (j 0..15,
-// c 0..1): the AND of each row's 32 sums keeps its sign bit iff none
-// counts, the common case; a row where some counts adds 32 less its
-// negative sums to cnt[h], one shift-add a sum.
-__device__ __forceinline__ void count_tile(int (&cnt)[2], const int (&d)[64]) {
-  int all[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    all[h] = d[2 * h] & d[2 * h + 1];
-#pragma unroll
-    for (int j = 1; j < 16; ++j)
-      all[h] &= d[4 * j + 2 * h] & d[4 * j + 2 * h + 1];
-  }
-  if ((all[0] & all[1]) < 0) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (all[h] < 0) continue;
-    unsigned neg = 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        neg += static_cast<unsigned>(d[4 * j + 2 * h + c]) >> 31;
-    cnt[h] += 32 - static_cast<int>(neg);
-  }
 }
 
 // A consumer warpgroup: its 64 queries against every tile of the split.
@@ -266,35 +225,13 @@ __device__ __forceinline__ void consume(const ulonglong2* __restrict__ q,
   const uint64_t desc0 = gm::smem_desc(ring, 128, 256 * KS);
   constexpr uint64_t kStageDesc = kStageBytes >> 4;
   int acc[64] = {};
-  // turns: consumer c issues after named barrier 1 + c, then opens the
-  // next consumer's barrier; the last opens consumer 0's once ahead, and
-  // not after its last tile, so that every barrier's arrivals and waits
-  // match
-  const uint32_t mine_bar = 1 + c, next_bar = 1 + ((c + 1) & (kConsumers - 1));
-  constexpr int kPair = 2 * kWarpgroup;
-  if (c == kConsumers - 1) gm::bar_arrive<kPair>(next_bar);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & (kStages - 1);
-    gm::mbar_wait(full + 8 * st, (t / kStages) & 1);
-    gm::bar_sync<kPair>(mine_bar);
-    product<KS, kBias>(acc, a, desc0 + st * kStageDesc, bias);
-    if (c < kConsumers - 1 || t + 1 < n_tiles)
-      gm::bar_arrive<kPair>(next_bar);
-    gm::wgmma_wait<0>();
-    gm::fence_regs(acc);
-    gm::mbar_arrive(empty + 8 * st);
-    count_tile(cnt, acc);
-  }
-  // the quad's four threads hold the same query rows' counts over other
-  // columns: one integer atomicAdd of their sum a row
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    int n = cnt[half];
-    n += __shfl_xor_sync(0xffffffffu, n, 1);
-    n += __shfl_xor_sync(0xffffffffu, n, 2);
-    const int qi = qw + 8 * half + g;
-    if (t4 == 0 && qi < nq && n != 0) atomicAdd(out + qi, n);
-  }
+  gm::consume_tiles(
+      n_tiles, full, empty, acc,
+      [&](int st) {
+        product<KS, kBias>(acc, a, desc0 + st * kStageDesc, bias);
+      },
+      [&](int) { gm::count_tile(cnt, acc); });
+  gm::add_row_counts(cnt, out, nq, qw);
 }
 
 #define GM_COUNT_CASES(CALL)            \
@@ -308,7 +245,7 @@ __device__ __forceinline__ void consume(const ulonglong2* __restrict__ q,
   case 7: CALL(4, true); break;         \
   default: break;
 
-__global__ void __launch_bounds__(kBlockThreads, 1)
+__global__ void __launch_bounds__(gm::kRingThreads, 1)
     count_kernel(const ulonglong2* __restrict__ q, int nq,
                  const ulonglong2* __restrict__ db, int nd, int thresh,
                  int rows_per_split, int* __restrict__ out) {
@@ -322,28 +259,19 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   if (nb == 0 || lo >= hi) return;
   const int ks = (nb + 7) / 8;
   const int cfg = 2 * (ks - 1) + (nb % 8 != 0);
-  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t full = ring + kRingBytes, empty = full + 8 * kStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      gm::mbar_init(full + 8 * s, kWarpgroup);
-      gm::mbar_init(empty + 8 * s, kConsumers * kWarpgroup);
-    }
-    gm::mbar_init_fence();
-  }
-  __syncthreads();
-  if (threadIdx.x < kWarpgroup) {
-    gm::regs_dec<kProducerRegs>();
-#define GM_PRODUCE(KS, B) produce<KS, B>(db, lo, hi, smem, full, empty)
-    switch (cfg) { GM_COUNT_CASES(GM_PRODUCE) }
+  gm::ring_roles<kStageBytes, kProducerRegs, kConsumerRegs>(
+      smem,
+      [&](uint8_t* ring, uint32_t full, uint32_t empty) {
+#define GM_PRODUCE(KS, B) produce<KS, B>(db, lo, hi, ring, full, empty)
+        switch (cfg) { GM_COUNT_CASES(GM_PRODUCE) }
 #undef GM_PRODUCE
-  } else {
-    gm::regs_inc<kConsumerRegs>();
+      },
+      [&](uint32_t ring, uint32_t full, uint32_t empty) {
 #define GM_CONSUME(KS, B) \
   consume<KS, B>(q, nq, lo, hi, thresh, out, ring, full, empty)
-    switch (cfg) { GM_COUNT_CASES(GM_CONSUME) }
+        switch (cfg) { GM_COUNT_CASES(GM_CONSUME) }
 #undef GM_CONSUME
-  }
+      });
 }
 
 #undef GM_COUNT_CASES
@@ -358,25 +286,15 @@ extern "C" int gm_hamming_count(const void* q, int nq, const void* db, int nd,
                                 void* stream) {
   if (nq <= 0 || nd <= 0 || thresh < 0 || n_splits <= 0 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  // per call: the attribute belongs to the current device's copy of the
-  // kernel, and the sharded backend calls on several cards
-  cudaError_t err = cudaFuncSetAttribute(
-      count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  const cudaError_t err =
+      gm::ring_kernel_ready<kProducerRegs, kConsumerRegs>(count_kernel,
+                                                          kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // setmaxnreg hands registers between the warpgroups of the block's own
-  // allocation: a kernel built with fewer than the roles' sum would wait
-  // forever at regs_inc, so it is refused
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, count_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (attr.numRegs * kBlockThreads <
-      kWarpgroup * (kProducerRegs + kConsumers * kConsumerRegs))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
   // whole tiles a split, so that only the last split has a ragged tile
   const int tiles = (nd + kTile - 1) / kTile;
   const int rows_per_split = (tiles + n_splits - 1) / n_splits * kTile;
   const dim3 grid((nq + kQPerBlock - 1) / kQPerBlock, n_splits);
-  count_kernel<<<grid, kBlockThreads, kSmemBytes,
+  count_kernel<<<grid, gm::kRingThreads, kSmemBytes,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const ulonglong2*>(q), nq,
       static_cast<const ulonglong2*>(db), nd, thresh, rows_per_split,

@@ -1,8 +1,10 @@
-// Shared pieces of the packed-pair kernels (packed_count.cu,
-// packed_topk.cu) on the int8 tensor cores: the row layout, the split of
-// the product into its even and odd sums, the A fragments, the tile loader
-// of mma_common.cuh's cp.async ring and one warp's product with 16 pair
-// rows.
+// Shared pieces of the packed-pair kernels on the int8 tensor cores: the
+// row layout and lanes_below, which both use, and, for the top-k
+// (packed_topk.cu, on mma.sync), the split of the product into its even
+// and odd sums, the A fragments, the tile loader of mma_common.cuh's
+// cp.async ring and one warp's product with 16 pair rows.  The count
+// (packed_count.cu) runs on wgmma and splits each pair row into two B rows
+// instead.
 //
 // Layout (guidemaker_tpu_torch/knn/packed.py).  Each base maps to a vertex
 // of the regular tetrahedron in {-1,+1}^3 (A, C, G, T; N -> 0), so two
@@ -42,7 +44,7 @@
 //
 // A zero slot (a pair row past the split's end, the odd slot of the last
 // row when nd is odd) sums to 0, which means m = L/4, not "no match", so
-// both epilogues mask every passing sum by its global guide index.
+// both kernels' epilogues mask passing sums by their global guide index.
 //
 // The kernels are never fed an N: an N is the zero vector here and would
 // count as a quarter match, so the index routes guides with N to the 2-bit

@@ -1,123 +1,323 @@
 // Packed-pair count kernel: for each query, the number of database guides
 // at Hamming distance < editdist, with two database guides per 128-lane
-// int8 row (packed_common.cuh), on the int8 tensor cores.
+// int8 row (packed_common.cuh), on the int8 tensor cores through Hopper's
+// warpgroup product (wgmma).
 //
 // Replaces the JAX package's Pallas kernel
 // guidemaker_tpu/knn/pallas_packed.py:_count_kernel (launched by
-// _packed_count), which ran the same int8 product on the TPU's matrix unit
-// and decoded both guides' sums from the one dot v = s*A + B of a row.
-// What it computes: dist < e <=> m > L - e <=> A > T (and B > T) with
-// T = 3L - 4e, every real guide counted once.
+// _packed_count), which ran the packed rows' int8 product on the TPU's
+// matrix unit and decoded both guides' sums from the one dot v = s*A + B
+// of a row.  What it computes: dist < e <=> m > L - e <=> A > T (and
+// B > T) with T = 3L - 4e, every real guide counted once.
 //
-// What bounds it on an H100: operations.  The product is the packed rows'
-// int8 dot, 2 * nq * (nd / 2) * 6L = 2 * nq * nd * 3L useful operations
-// (the bound that chip_smoke.py states), at 1,979 TOP/s dense; the threshold epilogue is a few integer operations a
-// sum on the INT32 pipes.  The database streams from L2 and is reused by
-// the 256 queries of a block.  The design:
-//   * the product is packed_common.cuh's: mma.sync.m16n8k32 s8 -> s32 on
-//     the rows as they stand, with the sum split into acc_e = s*A (even
-//     steps) and acc_o = B (odd steps) instead of decoding v in float32 on
-//     every pair (the dp4a kernel it replaces spent 32 dp4a and a float
-//     decode a pair row on the CUDA cores); NS + 1 MMAs a 16 x 16 tile of
-//     (query, guide) pairs, 5 at L 17..21, where the 2-bit count needs 6
-//     for the same pairs at L 20;
-//   * 8 warps of 32 queries held as A fragments, 128-row tiles copied by
-//     cp.async into a two-buffer ring (the rows need no decode, so they
-//     need not pass through registers), read by ldmatrix.x4;
-//   * the gate is the 2-bit count's, with no decode: acc_e starts at
-//     -s*(T+1) and acc_o at -(T+1), so a pair counts iff its sum is >= 0.
-//     A lane ANDs its 32 sums; if the sign bit survives, none counts (the
-//     common case), else each sum >= 0 is counted when its guide index is
-//     below the split's end and nd (a zero slot sums to 0, which passes
-//     whenever T + 1 <= 0, e.g. at editdist L);
-//   * the NS k32 steps (1..4) are a template parameter, set from L by
-//     gm::with_pair_steps, as the length is an argument of the C entry
-//     point;
+// What bounds it on an H100: operations.  The function needs the
+// tetrahedral dot of 3L lanes a pair, 2 * nq * nd * 3L int8 operations at
+// 1,979 TOP/s dense (the bound that chip_smoke.py states); the product
+// issued is 2 * nq * nd * K with K = 32 ceil((3L + 1) / 32), 64 at L 11..21
+// (the 2-bit count's one-hot rows need 96 at L 20).  The database streams
+// from L2 at 64 bytes a guide, reused by the 256 queries of a block.
+// Beside the tensor pipe, the ALU pipe thresholds every sum, about half an
+// operation a pair, and splits each pair row, some 40 operations shared by
+// 256 queries.  The design is the 2-bit count's (hamming_count.cu) on the
+// ring block of wgmma_common.cuh:
+//   * each pair row [s*tetra(even) | tetra(odd) | 0] (s = 4L + 1) becomes
+//     two B rows of K bytes, one a guide, with no decode: row 2p is lanes
+//     [0, 3L) as stored, then s at lane 3L; row 2p + 1 is stored lanes
+//     [3L, 6L) moved down to [0, 3L), then 1 at lane 3L; zeros up to K.
+//     A query row is tetra(q) in lanes [0, 3L) and -(T + 1) at lane 3L
+//     (T + 1 lies in [1 - L, 3L + 1], an int8).  The even sum is then
+//     s*A - s*(T + 1) and the odd one B - (T + 1): a guide counts iff its
+//     sum is >= 0, the threshold rides in the product (scale-d 0 on the
+//     first k32 step), and one accumulator holds both guides of a pair;
+//   * block: one producer warpgroup and four consumer warpgroups of 64
+//     queries held as wgmma A fragments (640 threads, one block an SM;
+//     setmaxnreg moves registers from the producer to the consumers);
+//   * a ring of kStages tiles of 64 pair rows, 128 B rows, one m64n128
+//     product's columns in guide order (B row r of the tile at pair row t0
+//     is guide 2 t0 + r).  The tile's 8 KB, contiguous in the database,
+//     reach a staging ring by cp.async kRawStages - 1 tiles ahead, 16
+//     coalesced bytes a thread in turn (chunks loaded by each thread for
+//     its own row left the producer waiting on L2 at every tile).  Then
+//     producer thread p writes B row p: it reads the 16-byte chunks of
+//     pair row t0 + p / 2 that its half needs (stored XOR-swizzled by the
+//     row, so that the rows' reads hit distinct banks), moves the odd
+//     half's bytes down by 3L (whole words at L % 4 == 0, a funnel shift
+//     otherwise; L is a template parameter, 1..21), sets the bias lane and
+//     stores the row in the K-major core-matrix layout of
+//     wgmma_common.cuh.  The 8-row groups of that layout do not match the
+//     rows' contiguous 128 bytes, so the rows pass through registers;
+//   * product: per tile, K / 32 wgmma m64n128k32 s8 x s8 -> s32 (1 step
+//     at L <= 10, 2 at L 11..21) in one commit group, the consumers taking
+//     turns to issue;
+//   * epilogue (gm::count_tile): a thread ANDs the 32 sums of each of its
+//     two query rows; if the sign bit survives, none counts (the common
+//     case), else the row counts its sums >= 0.  A slot that is not a real
+//     guide (the odd slot of the last pair when nd is odd, rows past the
+//     split's end or past nd) sums to -c(T + 1), which is >= 0 when
+//     4e >= 3L + 1, so the columns at or past the split's last real guide
+//     are masked by index, in the split's last tile only (every other tile
+//     is whole);
 //   * the database is cut into gridDim.y splits of whole tiles so that
 //     small query sets still fill the card; each split adds its per-query
 //     counts, summed over the quad, with one integer atomicAdd, so the
 //     result is exact and does not depend on the order in which blocks
 //     finish.
-// Targets sm_90a (mma.sync, ldmatrix and cp.async exist from sm_80; wgmma
-// and TMA, Hopper's faster path to the tensor cores, are not used).
+// Targets sm_90a: wgmma and setmaxnreg exist for no other target.
 #include <stdint.h>
 
 #include "packed_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
-using gm::kMTiles;
-using gm::kPairNTiles;
+using gm::kConsumers;
 using gm::kQPerBlock;
-using gm::kThreads;
-using gm::kTile;
+using gm::kWarpgroup;
 
-template <int NS>
-__device__ __forceinline__ void count_block(
-    const uint32_t* __restrict__ q, int nq, const int4* __restrict__ db,
-    int lo, int hi, int ghi, int three_l, int bias_e, int bias_o,
-    int* __restrict__ out, uint8_t* ring) {
-  const int t = threadIdx.x & 3;
-  const int qw = blockIdx.x * kQPerBlock + (threadIdx.x >> 5) * 32;
-  uint32_t ae[kMTiles][gm::even_steps(NS)][4];
-  uint32_t ao[kMTiles][gm::odd_steps(NS)][4];
-  gm::load_pair_a<NS>(ae, ao, q, nq, qw, three_l);
-  int cnt[kMTiles][2] = {};
+// pair rows a tile: two B rows each, the 128 columns of one m64n128
+// product
+constexpr int kPairTile = 64;
+// k32 steps of the widest B row (L 11..21)
+constexpr int kMaxSteps = 2;
+constexpr int kStageBytes = 2 * kPairTile * 32 * kMaxSteps;
+// the pair rows as stored, staged by cp.async kRawStages - 1 tiles ahead
+// of the producer: kPairTile rows of 128 bytes a stage, after the ring
+constexpr int kRawStages = 4;
+constexpr int kRawBytes = kPairTile * 16 * gm::kPackedVecs;
+constexpr int kRawOffset = gm::ring_smem_bytes(kStageBytes);
+constexpr int kSmemBytes = kRawOffset + kRawStages * kRawBytes;
+// the producer warpgroup's named barrier (the consumers' turns take
+// 1..kConsumers)
+constexpr uint32_t kProducerBar = 1 + kConsumers;
+// registers a thread of the producer (a pair row's chunks) and of a
+// consumer warpgroup (64 accumulators, 4 or 8 fragment registers)
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 104;
 
-  gm::pair_tiles<NS>(db, lo, hi, ring, [&](uint32_t src, int t0, int n0) {
-    int acc_e[kMTiles][kPairNTiles][4], acc_o[kMTiles][kPairNTiles][4];
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kPairNTiles; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_e[mt][nt][i] = bias_e;
-          acc_o[mt][nt][i] = bias_o;
-        }
-    gm::pair_mma_batch<NS>(acc_e, acc_o, ae, ao, src, n0);
-    int all = -1;
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kPairNTiles; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) all &= acc_e[mt][nt][i] & acc_o[mt][nt][i];
-    if (all < 0) return;  // every sum is < 0: nothing counts
-    // the even guide of the lane's pair row 8 nt + 2t + e is
-    // ge + 16 nt + 2e, its odd guide one more
-    const int ge = 2 * (t0 + n0 + 2 * t);
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kPairNTiles; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gi = ge + 16 * nt + 2 * (i & 1);
-          cnt[mt][i >> 1] += (acc_e[mt][nt][i] >= 0 && gi < ghi) +
-                             (acc_o[mt][nt][i] >= 0 && gi + 1 < ghi);
-        }
-  });
-  gm::add_counts(cnt, out, nq, qw);
+static_assert(2 * kPairTile == kWarpgroup, "one producer thread a B row");
+static_assert((kRawStages & (kRawStages - 1)) == 0 && kRawStages >= 2,
+              "a power-of-two staging ring");
+static_assert(kRawBytes % (16 * kWarpgroup) == 0, "whole copies a thread");
+static_assert(kRawOffset % 16 == 0, "16-byte copies");
+static_assert(kQPerBlock == kConsumers * 64, "one m64 tile a consumer");
+
+// k32 steps of a B row of L bases: lanes [0, 3L) and the bias lane 3L
+__host__ __device__ constexpr int b_steps(int length) {
+  return (3 * length + 1 + 31) / 32;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+// the longest guide two of which fit a 128-lane row (6L <= 128)
+constexpr int kMaxLength = 16 * gm::kPackedVecs / 6;
+static_assert(b_steps(kMaxLength) <= kMaxSteps,
+              "the bias lane fits K for every L a row holds");
+
+// The producer warpgroup: thread p writes B row p of every tile of the
+// split's pair rows [lo, hi), half p & 1 of pair row t0 + p / 2 (rows at
+// or past hi are zeros and carry only the bias lane).  The tiles reach
+// shared memory by cp.async, kRawStages - 1 ahead, each thread copying 16
+// bytes in turn (chunk u of row r lands at 16 (u ^ (r & 7)), so that the
+// rows' reads below hit distinct banks); the producer's named barrier
+// tells every thread that the tile's copies are done and the stage
+// refilled next has been read.
+template <int L>
+__device__ __forceinline__ void produce(const int4* __restrict__ db, int lo,
+                                        int hi, uint8_t* ring, uint32_t full,
+                                        uint32_t empty) {
+  // lane 3L is byte kShift / 8 of word kJ of a row
+  constexpr int kJ = 3 * L / 4, kShift = 8 * (3 * L % 4);
+  constexpr int KS = b_steps(L);
+  // the even half needs the row's words 0..kJ; the odd half words
+  // kJ..2 kJ + 1, from chunk kJ / 4 on: its word j is bytes 3L + 4j ..
+  constexpr int kEvenChunks = kJ / 4 + 1;
+  constexpr int kOddChunks = (2 * kJ + 1) / 4 - kJ / 4 + 1;
+  constexpr int kChunks = kEvenChunks > kOddChunks ? kEvenChunks : kOddChunks;
+  static_assert(kJ / 4 + kChunks <= gm::kPackedVecs, "within the row");
+  static_assert(kJ < 8 * KS, "the bias lane within K");
+  constexpr uint32_t kBelow = (1u << kShift) - 1u;
+  constexpr int kCopies = kRawBytes / 16 / kWarpgroup;
+  const int p = threadIdx.x;
+  const bool odd = p & 1;
+  const int n_tiles = (hi - lo + kPairTile - 1) / kPairTile;
+  const int row_off = (p >> 3) * (256 * KS) + (p & 7) * 16;
+  const uint32_t bias = odd ? 1u : static_cast<uint32_t>(4 * L + 1);
+  const uint8_t* raw = ring + kRawOffset;
+  const uint32_t raw_addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  // the thread's row of a stage, and its first chunk
+  const int r = p >> 1, base = odd ? kJ / 4 : 0;
+  auto copy = [&](int t) {
+    const uint32_t dst = raw_addr + (t & (kRawStages - 1)) * kRawBytes;
+    const int t0 = lo + t * kPairTile;
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) {
+      const int c = p + kWarpgroup * k;
+      const int row = c / gm::kPackedVecs, u = c % gm::kPackedVecs;
+      const bool in = t0 + row < hi;
+      gm::cp_async<16>(
+          dst + 16 * (gm::kPackedVecs * row + (u ^ (row & 7))),
+          db + (in ? static_cast<size_t>(t0 + row) * gm::kPackedVecs + u : 0),
+          in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kRawStages - 1; ++t) {
+    if (t < n_tiles) copy(t);
+    gm::cp_async_commit();
+  }
+  uint32_t v[4 * kChunks];
+  gm::produce_tiles<kStageBytes>(
+      n_tiles, ring, full, empty,
+      [&](int t) {
+        gm::cp_async_wait<kRawStages - 2>();
+        gm::bar_sync<kWarpgroup>(kProducerBar);
+        if (t + kRawStages - 1 < n_tiles) copy(t + kRawStages - 1);
+        gm::cp_async_commit();
+        const uint4* row = reinterpret_cast<const uint4*>(
+            raw + (t & (kRawStages - 1)) * kRawBytes) +
+            gm::kPackedVecs * r;
+#pragma unroll
+        for (int i = 0; i < kChunks; ++i) {
+          const uint4 x = odd || i < kEvenChunks ? row[(base + i) ^ (r & 7)]
+                                                 : make_uint4(0, 0, 0, 0);
+          v[4 * i] = x.x;
+          v[4 * i + 1] = x.y;
+          v[4 * i + 2] = x.z;
+          v[4 * i + 3] = x.w;
+        }
+      },
+      [&](uint8_t* stage) {
+        uint32_t w[8 * KS];
+#pragma unroll
+        for (int j = 0; j < 8 * KS; ++j) {
+          if (j > kJ) {
+            w[j] = 0u;
+            continue;
+          }
+          uint32_t moved = v[kJ % 4 + j];
+          if constexpr (kShift != 0)
+            moved = __funnelshift_r(moved, v[kJ % 4 + j + 1], kShift);
+          w[j] = odd ? moved : v[j];
+          // the bias lane; the odd half's bytes past it are stored zeros,
+          // the even half's are the odd guide's lanes
+          if (j == kJ) w[j] = (w[j] & kBelow) | bias << kShift;
+        }
+        uint4* dst = reinterpret_cast<uint4*>(stage + row_off);
+#pragma unroll
+        for (int c = 0; c < 2 * KS; ++c)
+          dst[8 * c] = make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2],
+                                  w[4 * c + 3]);
+      });
+  gm::cp_async_wait<0>();
+}
+
+// Byte lanes o..o+3 of a query row's bias lane: -(thresh + 1) at lane
+// three_l.
+__device__ __forceinline__ uint32_t bias_lane(int o, int three_l, int bias) {
+  const int b = three_l - o;
+  return b >= 0 && b < 4 ? (static_cast<uint32_t>(bias) & 0xffu) << (8 * b)
+                         : 0u;
+}
+
+// A consumer warpgroup: its 64 queries against every tile of the split's
+// pair rows [lo, hi); guides at or past ghi are not counted.
+template <int KS>
+__device__ __forceinline__ void consume(const uint32_t* __restrict__ q,
+                                        int nq, int three_l, int thresh,
+                                        int lo, int hi, int ghi,
+                                        int* __restrict__ out, uint32_t ring,
+                                        uint32_t full, uint32_t empty) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  // consumer c holds queries 64 c .. 64 c + 63 of the block, its warp w
+  // rows 16 w .. 16 w + 15 of those
+  const int c = (threadIdx.x - kWarpgroup) / kWarpgroup;
+  const int qw = blockIdx.x * kQPerBlock + 64 * c +
+                 ((threadIdx.x >> 5) & 3) * 16;
+  const int bias = -(thresh + 1);
+  // registers 0 and 1: K bytes 32 s + 4t.., rows g and g + 8; 2 and 3:
+  // bytes 32 s + 16 + 4t..; lanes past 3L (the query's second copy) zeroed
+  uint32_t a[KS][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = qw + 8 * half + g;
+    const uint32_t* row = q + static_cast<size_t>(qi) * (4 * gm::kPackedVecs);
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = 32 * s + 16 * h + 4 * t4;
+        const uint32_t w = qi < nq ? row[o / 4] : 0u;
+        a[s][2 * h + half] = (w & gm::lanes_below(o, three_l)) |
+                             bias_lane(o, three_l, bias);
+      }
+  }
+  // opaque to the compiler, which would otherwise reload the fragments
+  // before every product
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i]));
+  int cnt[2] = {};
+  const int n_tiles = (hi - lo + kPairTile - 1) / kPairTile;
+  const uint64_t desc0 = gm::smem_desc(ring, 128, 256 * KS);
+  constexpr uint64_t kStageDesc = kStageBytes >> 4;
+  int acc[64] = {};
+  gm::consume_tiles(
+      n_tiles, full, empty, acc,
+      [&](int st) {
+        gm::wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < KS; ++s)
+          gm::wgmma_m64n128k32_s8(acc, a[s], desc0 + st * kStageDesc + 16 * s,
+                                  s == 0 ? 0 : 1);
+        gm::wgmma_commit();
+      },
+      [&](int t) {
+        // the tile's real guides: all 128 but in the split's last tile
+        const int real = ghi - 2 * (lo + t * kPairTile);
+        if (real >= 2 * kPairTile)
+          gm::count_tile(cnt, acc);
+        else
+          gm::count_tile<true>(cnt, acc, real);
+      });
+  gm::add_row_counts(cnt, out, nq, qw);
+}
+
+#define GM_PACKED_LENGTHS(CALL)                                             \
+  CALL(1) CALL(2) CALL(3) CALL(4) CALL(5) CALL(6) CALL(7) CALL(8) CALL(9) \
+  CALL(10) CALL(11) CALL(12) CALL(13) CALL(14) CALL(15) CALL(16) CALL(17) \
+  CALL(18) CALL(19) CALL(20) CALL(21)
+
+__global__ void __launch_bounds__(gm::kRingThreads, 1)
     packed_count_kernel(const uint32_t* __restrict__ q, int nq,
                         const int4* __restrict__ db, int nd, int length,
                         int thresh, int rows_per_split,
                         int* __restrict__ out) {
-  __shared__ __align__(16) uint8_t ring[gm::kPairRing];
+  extern __shared__ __align__(1024) uint8_t smem[];
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min((nd + 1) / 2, lo + rows_per_split);
+  // an empty split: the block counts nothing
+  if (lo >= hi) return;
   // guides below ghi are real and in this split
   const int ghi = min(2 * hi, nd);
-  const int bias_o = -(thresh + 1), bias_e = (4 * length + 1) * bias_o;
-  const int three_l = 3 * length;
-  gm::with_pair_steps(length, [&](auto ns) {
-    count_block<decltype(ns)::value>(q, nq, db, lo, hi, ghi, three_l, bias_e,
-                                     bias_o, out, ring);
-  });
+  gm::ring_roles<kStageBytes, kProducerRegs, kConsumerRegs>(
+      smem,
+      [&](uint8_t* ring, uint32_t full, uint32_t empty) {
+#define GM_PRODUCE(L) \
+  case L: produce<L>(db, lo, hi, ring, full, empty); break;
+        switch (length) { GM_PACKED_LENGTHS(GM_PRODUCE) default: break; }
+#undef GM_PRODUCE
+      },
+      [&](uint32_t ring, uint32_t full, uint32_t empty) {
+        if (b_steps(length) == 1)
+          consume<1>(q, nq, 3 * length, thresh, lo, hi, ghi, out, ring, full,
+                     empty);
+        else
+          consume<2>(q, nq, 3 * length, thresh, lo, hi, ghi, out, ring, full,
+                     empty);
+      });
 }
+
+#undef GM_PACKED_LENGTHS
 
 }  // namespace
 
@@ -132,11 +332,15 @@ extern "C" int gm_packed_count(const void* q, int nq, const void* db, int nd,
       editdist < 0 || editdist > length || n_splits <= 0 ||
       n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      gm::ring_kernel_ready<kProducerRegs, kConsumerRegs>(packed_count_kernel,
+                                                          kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // whole tiles a split, so that only the last split has a ragged tile
-  const int tiles = (n2 + kTile - 1) / kTile;
-  const int rows_per_split = (tiles + n_splits - 1) / n_splits * kTile;
+  const int tiles = (n2 + kPairTile - 1) / kPairTile;
+  const int rows_per_split = (tiles + n_splits - 1) / n_splits * kPairTile;
   const dim3 grid((nq + kQPerBlock - 1) / kQPerBlock, n_splits);
-  packed_count_kernel<<<grid, kThreads, 0,
+  packed_count_kernel<<<grid, gm::kRingThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(q), nq, static_cast<const int4*>(db), nd,
       length, 3 * length - 4 * editdist, rows_per_split,

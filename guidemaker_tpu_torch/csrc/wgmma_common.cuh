@@ -1,9 +1,23 @@
-// Hopper's warpgroup path to the int8 tensor cores, for the 2-bit count
-// kernel (hamming_count.cu) and the tensor-core rate probe (mma_rate.cu):
-// the shared-memory matrix descriptor, the s8 wgmma m64n128k32 product
-// with A in registers, its fences, commit and wait, the mbarriers of a
-// shared-memory ring, named barriers, and setmaxnreg.  Everything here is inline PTX for
-// sm_90a (wgmma and setmaxnreg exist for no other target).
+// Hopper's warpgroup path to the int8 tensor cores, for the count kernels
+// (hamming_count.cu, packed_count.cu) and the tensor-core rate probe
+// (mma_rate.cu): the shared-memory matrix descriptor, the s8 wgmma
+// m64n128k32 product with A in registers, its fences, commit and wait,
+// the mbarriers of a shared-memory ring, named barriers, and setmaxnreg,
+// all inline PTX for sm_90a (wgmma and setmaxnreg exist for no other
+// target); then the block both count kernels are built on (ring_roles,
+// produce_tiles, consume_tiles) and its count epilogue.
+//
+// The block: one producer warpgroup fills a ring of kStages shared-memory
+// tiles of 128 B rows, each signalled on its `full` mbarrier; kConsumers
+// consumer warpgroups each hold 64 query rows, one m64 tile, as A
+// fragments in registers, multiply them by every tile and signal its
+// `empty` mbarrier.  The consumers take turns to issue (a ring of named
+// barriers), so that while one thresholds its sums the others' products
+// keep the tensor pipe busy; left to themselves they wait on the same tile
+// and threshold at the same time.  Each consumer waits for its own commit
+// group before its epilogue: a group left in flight across the loop's
+// back-edge makes ptxas serialise every wgmma (note C7514).  setmaxnreg
+// gives the consumers the registers that the producer does not need.
 //
 // B layout: K-major without swizzle, in core matrices of 8 rows x 16
 // bytes, each 128 contiguous bytes (row i of the core matrix at byte
@@ -167,6 +181,179 @@ __device__ __forceinline__ void regs_dec() {
 template <int N>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" : : "n"(N));
+}
+
+constexpr int kWarpgroup = 128;
+constexpr int kConsumers = 4;
+constexpr int kRingThreads = kWarpgroup * (1 + kConsumers);
+constexpr int kStages = 4;
+// registers a thread of a kRingThreads block at one block an SM: 65,536 /
+// 640, rounded down to a multiple of 8
+constexpr int kRingRegs = 96;
+
+static_assert((kStages & (kStages - 1)) == 0, "a power-of-two ring");
+static_assert((kConsumers & (kConsumers - 1)) == 0, "a power-of-two turn");
+
+// Shared memory of a ring of kStages stages of stage_bytes, then the
+// `full` and the `empty` mbarrier of each stage.
+__host__ __device__ constexpr int ring_smem_bytes(int stage_bytes) {
+  return kStages * stage_bytes + 2 * 8 * kStages;
+}
+
+// The roles of the block on the ring at smem (ring_smem_bytes(kStageBytes)
+// of dynamic shared memory): thread 0 sets up the barriers, then the
+// producer warpgroup keeps kProducerRegs registers a thread and runs
+// produce(ring, full, empty), the ring as a pointer, and the consumer
+// warpgroups take kConsumerRegs and run consume(ring, full, empty), the
+// ring as a shared address.  Every thread of the block calls it.
+template <int kStageBytes, int kProducerRegs, int kConsumerRegs,
+          typename Produce, typename Consume>
+__device__ __forceinline__ void ring_roles(uint8_t* smem, Produce&& produce,
+                                           Consume&& consume) {
+  static_assert(kWarpgroup * (kProducerRegs + kConsumers * kConsumerRegs) <=
+                    kRingThreads * kRingRegs,
+                "the block's registers");
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t full = ring + kStages * kStageBytes,
+                 empty = full + 8 * kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, kWarpgroup);
+      mbar_init(empty + 8 * s, kConsumers * kWarpgroup);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < kWarpgroup) {
+    regs_dec<kProducerRegs>();
+    produce(smem, full, empty);
+  } else {
+    regs_inc<kConsumerRegs>();
+    consume(ring, full, empty);
+  }
+}
+
+// The producer's walk over n_tiles tiles: for tile t, fetch(t) issues the
+// loads that need no stage, the thread waits until the tile's stage is
+// free, fill(stage) writes it through the pointer stage, and the stage's
+// `full` barrier is signalled.
+template <int kStageBytes, typename Fetch, typename Fill>
+__device__ __forceinline__ void produce_tiles(int n_tiles, uint8_t* ring,
+                                              uint32_t full, uint32_t empty,
+                                              Fetch&& fetch, Fill&& fill) {
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & (kStages - 1);
+    fetch(t);
+    mbar_wait(empty + 8 * st, ((t / kStages) & 1) ^ 1);
+    fill(ring + st * kStageBytes);
+    fence_proxy_async();
+    mbar_arrive(full + 8 * st);
+  }
+}
+
+// A consumer warpgroup's walk over n_tiles tiles: for tile t, wait until
+// its stage st is full, take the turn, product(st) issues the products
+// into acc in one commit group, pass the turn, wait for the group, free
+// the stage, and epilogue(t) reads acc.  Consumer c issues after named
+// barrier 1 + c, then opens the next consumer's; the last opens consumer
+// 0's once ahead, and not after its last tile, so that every barrier's
+// arrivals and waits match.
+template <typename Product, typename Epilogue>
+__device__ __forceinline__ void consume_tiles(int n_tiles, uint32_t full,
+                                              uint32_t empty, int (&acc)[64],
+                                              Product&& product,
+                                              Epilogue&& epilogue) {
+  const int c = (threadIdx.x - kWarpgroup) / kWarpgroup;
+  const uint32_t mine_bar = 1 + c, next_bar = 1 + ((c + 1) & (kConsumers - 1));
+  constexpr int kPair = 2 * kWarpgroup;
+  if (c == kConsumers - 1) bar_arrive<kPair>(next_bar);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & (kStages - 1);
+    mbar_wait(full + 8 * st, (t / kStages) & 1);
+    bar_sync<kPair>(mine_bar);
+    product(st);
+    if (c < kConsumers - 1 || t + 1 < n_tiles) bar_arrive<kPair>(next_bar);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * st);
+    epilogue(t);
+  }
+}
+
+// The count epilogue of an m64 tile's sums: a pair counts iff its sum is
+// >= 0 and, if kMasked, its column is below limit.  Query row 8 h + g of
+// the warp's 16 holds d[4j + 2h + c] (j 0..15, c 0..1), column
+// 8 j + 2 t + c: the AND of each row's 32 sums keeps its sign bit iff
+// none counts, the common case; a row where some counts adds 32 less its
+// negative (or masked) sums to cnt[h], one shift-add a sum.  The ANDs run
+// in one chain per row: the same ANDs as a tree made both count kernels
+// 2.3 to 9 times slower on the card.
+template <bool kMasked = false>
+__device__ __forceinline__ void count_tile(int (&cnt)[2], const int (&d)[64],
+                                           int limit = 0) {
+  int all[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    all[h] = d[2 * h] & d[2 * h + 1];
+#pragma unroll
+    for (int j = 1; j < 16; ++j)
+      all[h] &= d[4 * j + 2 * h] & d[4 * j + 2 * h + 1];
+  }
+  if ((all[0] & all[1]) < 0) return;
+  // column 8 j + 2 t + c is below limit iff 8 j + c < limit - 2 t
+  const int below = limit - 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (all[h] < 0) continue;
+    unsigned neg = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        unsigned x = static_cast<unsigned>(d[4 * j + 2 * h + c]);
+        if constexpr (kMasked) x |= 8 * j + c < below ? 0u : 0x80000000u;
+        neg += x >> 31;
+      }
+    cnt[h] += 32 - static_cast<int>(neg);
+  }
+}
+
+// The quad's four threads hold the same query rows' counts over other
+// columns: one integer atomicAdd of their sum a row, for the rows qw + g
+// (cnt[0]) and qw + 8 + g (cnt[1]) below nq.
+__device__ __forceinline__ void add_row_counts(const int (&cnt)[2],
+                                               int* __restrict__ out, int nq,
+                                               int qw) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    int n = cnt[half];
+    n += __shfl_xor_sync(0xffffffffu, n, 1);
+    n += __shfl_xor_sync(0xffffffffu, n, 2);
+    const int qi = qw + 8 * half + g;
+    if (t == 0 && qi < nq && n != 0) atomicAdd(out + qi, n);
+  }
+}
+
+// Readies kernel, built on ring_roles with these register counts, for a
+// launch with smem_bytes of dynamic shared memory on the current device.
+// Per call: the attribute belongs to the current device's copy of the
+// kernel, and the sharded backend calls on several cards.  setmaxnreg
+// hands registers between the warpgroups of the block's own allocation,
+// so a kernel built with fewer than the roles' sum would wait forever at
+// regs_inc: it is refused.
+template <int kProducerRegs, int kConsumerRegs, typename Kernel>
+inline cudaError_t ring_kernel_ready(Kernel* kernel, int smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * kRingThreads <
+      kWarpgroup * (kProducerRegs + kConsumers * kConsumerRegs))
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
 }  // namespace gm

@@ -55,3 +55,35 @@ def test_k1_is_held_to_wgmma_and_its_edges():
                                             32, 2)
     assert {63, 64, 65, 255, 257} <= set(cs.COUNT_EDGE_NQ)
     assert all(nd % 128 for nd in cs.COUNT_EDGE_ND)
+
+
+def test_k4_is_held_to_wgmma_and_its_edges():
+    """K4 must compile to IGMMA (phase 2 also fails it on IMMA or on a
+    serialisation note, as K1); phase 3d's count edges straddle its m64
+    tiles and 256-query blocks and are ragged against its 64-row tiles of
+    pair rows, even and odd, at each k32 step count and each shift of its
+    odd B rows (3L % 4)."""
+    assert cs.TC_KERNELS["packed_count_kernel"] == "IGMMA"
+    assert set(cs.WGMMA_KERNELS) == {"count_kernel", "packed_count_kernel"}
+    assert all(v == "IMMA" for k, v in cs.TC_KERNELS.items()
+               if "topk" in k)
+    assert {63, 64, 65, 255, 256, 257} <= set(cs.PACKED_COUNT_EDGE_NQ)
+    assert {nd % 2 for nd in cs.PACKED_EDGE_ND} == {0, 1}
+    assert all(-(-nd // 2) % 64 for nd in cs.PACKED_EDGE_ND)
+    lengths = cs.PACKED_EDGE_LENGTHS
+    assert {-(-(3 * L + 1) // 32) for L in lengths} == {1, 2}
+    assert {3 * L % 4 for L in lengths} == {0, 1, 2, 3}
+
+
+def test_count_probe_needs_a_card(capsys):
+    """tools/count_probe.py, which times K4 against K1 on the card, exits
+    1 and prints no result without one."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "count_probe.py")
+    spec = importlib.util.spec_from_file_location("count_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    assert probe.main(os.path.dirname(os.path.dirname(path))) == 1
+    assert capsys.readouterr().out == ""

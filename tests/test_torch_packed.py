@@ -4,10 +4,12 @@ The same N-free codes, made with numpy from a seed, go through the JAX
 package's packed kernels (Pallas in interpret mode on the CPU, as
 tests/test_packed.py runs them) and through the port's wrappers, which run
 the plain PyTorch versions on a CPU tensor.  Every result is an integer,
-so the tolerance is exact equality.  A numpy model of the CUDA kernels'
-arithmetic (split sums, biases, gates, masks, splits) is held against
-both.  The kernels themselves need the card (the ``cuda`` tests here and
-in tests/test_torch_knn.py).
+so the tolerance is exact equality.  Numpy models of the CUDA kernels'
+arithmetic are held against both: here the split sums of the mma.sync
+product that the top-k runs (biases, gates, masks, splits), and in
+tests/test_torch_packed_wgmma.py the count's wgmma design.  The kernels
+themselves need the card (the ``cuda`` tests here and in
+tests/test_torch_knn.py).
 """
 import numpy as np
 import pytest
@@ -192,11 +194,13 @@ def _splits(n2, n_splits):
 
 
 def _packed_count_model(q, db, length, editdist, n_splits):
-    """csrc/packed_count.cu's arithmetic in numpy: split A fragments from
-    the query rows, database splits of whole 128-row tiles zero-filled at
-    the ragged edge, 16-row batches whose sums start at acc_e = -s(T+1)
-    and acc_o = -(T+1), the lane's sign gate, and each sum >= 0 counted
-    when its guide index is below the split's end and nd."""
+    """The split-sum count on packed_common.cuh's mma.sync product (the
+    count kernel's body before it ran on wgmma) in numpy: split A
+    fragments from the query rows, database splits of whole 128-row
+    tiles zero-filled at the ragged edge, 16-row batches whose sums
+    start at acc_e = -s(T+1) and acc_o = -(T+1), the lane's sign gate,
+    and each sum >= 0 counted when its guide index is below the split's
+    end and nd."""
     nd = db.shape[0]
     qrows, dbrows = (r.numpy() for r in (pk.query_rows(_t(q)),
                                          pk.db_rows(_t(db))))
@@ -317,11 +321,13 @@ def _model_codes(length, nq, nd, seed):
 @pytest.mark.parametrize("nd", [600, 601])
 @pytest.mark.parametrize("length", MODEL_LENGTHS)
 def test_packed_count_model_matches_plain_and_jax(length, nd):
-    """The tensor-core count's split sums, biases, sign gate and
-    global-index mask equal ``packed_count_plain`` and the JAX packed
-    count kernel exactly: every k32-step edge (L), nd odd and even, a
-    database ragged against its 128-row tiles, 1 to 3 splits, every
-    editdist edge including those where a zero slot passes the gate."""
+    """The split-sum arithmetic of packed_common.cuh's mma.sync product
+    (the packed top-k's, and the count's before it ran on wgmma): its
+    split sums, biases, sign gate and global-index mask equal
+    ``packed_count_plain`` and the JAX packed count kernel exactly: every
+    k32-step edge (L), nd odd and even, a database ragged against its
+    128-row tiles, 1 to 3 splits, every editdist edge including those
+    where a zero slot passes the gate."""
     q, db = _model_codes(length, 300, nd, 300 + length + nd)
     qr, dbr = pk.query_rows(_t(q)), pk.db_rows(_t(db))
     dbj = pp.prepare_db_packed(db, 128)
@@ -562,6 +568,10 @@ def cuda_device():
 EDGE_LENGTHS = [1, 10, 11, 16, 20, 21]
 EDGE_NQ = (1, 15, 300)
 EDGE_ND = (2_050, 2_051)
+#: the wgmma count's edges: its m64 tiles and 256-query blocks (nq), and
+#: databases ragged against its 64-row tiles of pair rows, even and odd
+WG_EDGE_NQ = (63, 64, 65, 255, 256, 257)
+WG_EDGE_ND = (200_002, 200_003)
 
 
 @pytest.mark.cuda
@@ -569,7 +579,8 @@ EDGE_ND = (2_050, 2_051)
 def test_packed_kernels_edges_on_card(cuda_device, length):
     """Both packed kernels against their plain versions at their tiling
     edges, every editdist edge of the count (0-3, the first with T < 0,
-    L) and every list edge of the top-k (k)."""
+    L) and every list edge of the top-k (k); then the wgmma count at its
+    own edges (WG_EDGE_NQ, WG_EDGE_ND) at the same editdists and 7."""
     for nd in EDGE_ND:
         qn, dbn = _model_codes(length, max(EDGE_NQ), nd, length + nd)
         q = pk.query_rows(_t(qn).to(cuda_device))
@@ -585,3 +596,14 @@ def test_packed_kernels_edges_on_card(cuda_device, length):
                     stream.packed_topk(q[:nq], db, nd, length, k),
                     pk.packed_topk_plain(q[:nq], db, nd, length, k)), \
                     (nd, nq, k)
+    for nd in WG_EDGE_ND:
+        qn, dbn = _model_codes(length, max(WG_EDGE_NQ), nd, length + nd)
+        q = pk.query_rows(_t(qn).to(cuda_device))
+        db = pk.db_rows(_t(dbn).to(cuda_device))
+        for nq in WG_EDGE_NQ:
+            for e in sorted(set(_model_editdists(length))
+                            | ({7} if length >= 7 else set())):
+                assert torch.equal(
+                    stream.packed_count(q[:nq], db, nd, length, e),
+                    pk.packed_count_plain(q[:nq], db, nd, length, e)), \
+                    (nd, nq, e)
