@@ -12,13 +12,14 @@ Phases, one line each; any failure exits non-zero:
    source, all started together; ptxas's registers, spills and static
    shared memory for every kernel (each kcap of the top-k) and its wgmma
    notes, and by ``cuobjdump -sass`` the tensor-core instructions: IGMMA
-   (int8 wgmma) in the 2-bit and the packed count, which may hold no IMMA
-   and whose products ptxas may not serialise, IMMA (int8 mma.sync) in
-   every kcap of the 2-bit and packed top-k kernels, BMMA
-   (1-bit) in the 3-gram count at each of its 8 k256 step counts, none
-   with POPC or IDP4A (dp4a), and none may spill on the main path (the
-   counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); both wgmma
-   counts' LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP counts;
+   (int8 wgmma) in the 2-bit and the packed count and in every kcap of
+   the 2-bit top-k, which may hold no IMMA and whose products ptxas may
+   not serialise, IMMA (int8 mma.sync) in every kcap of the packed top-k,
+   BMMA (1-bit) in the 3-gram count at each of its 8 k256 step counts,
+   none with POPC or IDP4A (dp4a), and none may spill on the main path
+   (the counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); every
+   wgmma kernel's LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP
+   counts;
    then the tensor-core rate probe (csrc/mma_rate.cu): s8 m16n8k32 and b1
    m16n8k256 mma.sync chains and the s8 wgmma m64n128k32 chain the 2-bit
    count issues, each kind's operations a second and SASS opcode, from the
@@ -57,9 +58,9 @@ Phases, one line each; any failure exits non-zero:
    >= 7, equal to the plain k=1 distance, named Cont-<md5>, the same frame
    again from a second search with the same seed), and the launch count of
    both 2-bit kernels (> 0); then the top-k's time on the run's phase-2
-   queries at kcap 1, 2, 4, 8, 16 and 32, each with its bound (each list
-   the first columns of the kcap-32 list, whose first knum columns are the
-   plain top-k's);
+   queries at kcap 1, 2, 4, 8, 16 and 32, each with its bound and beside
+   the mma.sync design's time (each list the first columns of the kcap-32
+   list, whose first knum columns are the plain top-k's);
 7. the same run with GUIDEMAKER_TPU_PACKED=1: the same targets table, the
    same control invariants, both packed kernels launched and neither 2-bit
    kernel; its controls join and wall; then the packed top-k on the run's
@@ -237,6 +238,12 @@ PACKED_COUNT_EDGE_NQ = (1, 63, 64, 65, 255, 256, 257, 4095)
 FEATURE_EDGE_WORDS = (1, 4, 5, 8, 17, 18, 25, 29, 30)
 #: the kcaps of phase 6's and phase 7's top-k sweeps
 SWEEP_KCAPS = (1, 2, 4, 8, 16, 32)
+#: the 2-bit top-k's ms at each kcap of SWEEP_KCAPS on the phase-2 lists
+#: of the design run, as its mma.sync design took them before it moved to
+#: wgmma (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed
+#: beside phase 6's sweep
+MMA_SYNC_KCAP_MS = {1: 34.383, 2: 34.113, 4: 34.481, 8: 35.026,
+                    16: 51.295, 32: 60.306}
 #: an H100 SXM's peaks (NVIDIA's data sheet, dense): int8 tensor-core
 #: operations, device-memory bytes, and INT32 operations (64 INT32 lanes a
 #: SM against the 128 float32 lanes of the 67 TFLOP/s float32 peak, in
@@ -998,7 +1005,8 @@ def phase_design(count, topk, dev):
         ops, 16 * (nq + nd))
     topk.row["ms_by_kcap"] = {str(k): round(t, 3) for k, t, _ in sweep}
     say(f"phase 6 top-k by kcap on the {nq} phase-2 queries x {nd} guides: "
-        + ", ".join(f"kcap {k} {t:.3f} ms (bound {b:.3f} ms, share "
+        + ", ".join(f"kcap {k} {t:.3f} ms (mma.sync design "
+                    f"{MMA_SYNC_KCAP_MS[k]:.3f} ms; bound {b:.3f} ms, share "
                     f"{b / t:.3f})" for k, t, b in sweep))
     controls = check_controls(res, out, dev)
     # the same seed searches the same candidates again
@@ -1829,19 +1837,14 @@ def wgmma_notes(log: str):
     return out
 
 
-#: the count kernels on wgmma (K1 and K4): IGMMA and no IMMA in their SASS,
-#: no serialisation note from ptxas, and each one's instantiations (phase
-#: 2 prints their logic, barrier and warpgroup counts)
-WGMMA_KERNELS = {"count_kernel": "k32 steps 1-4, bias lane or not",
-                 "packed_count_kernel": "L 1-21 producers, k32 steps 1-2"}
+#: every kcap a top-k kernel is built for
+KCAPS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
-def tc_kernels(kcaps):
-    """The 2-bit and packed count kernels, and the 2-bit and packed top-k
-    kernels at each of ``kcaps``."""
-    return tuple(name for prefix in ("", "packed_")
-                 for name in [f"{prefix}count_kernel"] + [
-                     f"{prefix}topk_kernel<{k}>" for k in kcaps])
+def topk_kernels(kcaps, prefix=""):
+    """The 2-bit (or, with prefix "packed_", the packed) top-k kernel at
+    each of ``kcaps``."""
+    return tuple(f"{prefix}topk_kernel<{k}>" for k in kcaps)
 
 
 def feature_kernels(steps):
@@ -1849,16 +1852,28 @@ def feature_kernels(steps):
     return tuple(f"feature_count_kernel<{s}>" for s in steps)
 
 
+#: the kernels on wgmma (the 2-bit and packed counts, the 2-bit top-k at
+#: every kcap): IGMMA and no IMMA in their SASS, no serialisation note from
+#: ptxas, and each one's instantiations (phase 2 prints their logic,
+#: barrier and warpgroup counts)
+WGMMA_KERNELS = {
+    "count_kernel": "k32 steps 1-4, bias lane or not",
+    "packed_count_kernel": "L 1-21 producers, k32 steps 1-2",
+    **{fn: "k32 steps 1-4, bias lane or not, " + (
+        "sub-lists" if k <= 32 else "row lists") + " in shared memory"
+       for k, fn in zip(KCAPS, topk_kernels(KCAPS))}}
 #: the tensor-core kernels whose SASS phase 2 reads, each with the opcode
 #: it must hold (every kcap a top-k kernel is built for, every step count
 #: of the 3-gram count: 1..8 for 1..30 words), and those that must not
-#: spill (the kcaps built for two blocks an SM, which the main path runs,
-#: and the 3-gram count at S <= 5, guides of <= 22 bases)
-TC_KERNELS = {**{fn: "IMMA" for fn in tc_kernels((1, 2, 4, 8, 16, 32, 64,
-                                                   128))},
+#: spill (the counts, the top-k kcaps the main path runs, and the 3-gram
+#: count at S <= 5, guides of <= 22 bases)
+TC_KERNELS = {**{fn: "IMMA" for fn in topk_kernels(KCAPS, "packed_")},
               **{fn: "BMMA" for fn in feature_kernels(range(1, 9))},
               **{fn: "IGMMA" for fn in WGMMA_KERNELS}}
-NO_SPILL_KERNELS = tc_kernels((1, 2, 4, 8)) + feature_kernels(range(1, 6))
+NO_SPILL_KERNELS = (("count_kernel", "packed_count_kernel")
+                    + topk_kernels((1, 2, 4, 8))
+                    + topk_kernels((1, 2, 4, 8), "packed_")
+                    + feature_kernels(range(1, 6)))
 #: the tensor-core rate probe's kernel for each kind (csrc/mma_rate.cu):
 #: (kernel, gm_mma_rate kind, blocks an SM, iterations, M, N, K of one
 #: product, products a warp (mma.sync) or a warpgroup (wgmma) an iteration,

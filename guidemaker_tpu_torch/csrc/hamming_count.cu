@@ -24,7 +24,8 @@
 //     4c + 3 code-major: byte 4k + b is 1 iff base 4c + b is valid with code
 //     k (any order of K gives the same product, as long as queries and
 //     database share it; this one decodes with a multiply a word);
-//   * block: wgmma_common.cuh's ring block, one producer warpgroup and
+//   * block: wgmma_common.cuh's ring block (its one-hot side, shared with
+//     the 2-bit top-k, in onehot_wgmma.cuh), one producer warpgroup and
 //     four consumer warpgroups (640 threads, one block an SM; setmaxnreg
 //     gives the consumers the registers the producer does not need).  Each
 //     consumer holds 64 queries, one m64 tile, as wgmma A fragments in
@@ -59,122 +60,19 @@
 // Targets sm_90a: wgmma and setmaxnreg exist for no other target.
 #include <stdint.h>
 
-#include "mma_common.cuh"
-#include "wgmma_common.cuh"
+#include "onehot_wgmma.cuh"
 
 namespace {
 
-using gm::kConsumers;
 using gm::kQPerBlock;
 using gm::kTile;
 using gm::kWarpgroup;
 
-// bytes of one ring stage: kTile rows of at most 4 k32 steps
-constexpr int kStageBytes = kTile * 32 * gm::kMaxSteps;
+constexpr int kStageBytes = gm::kOnehotStageBytes;
 constexpr int kSmemBytes = gm::ring_smem_bytes(kStageBytes);
 // registers a thread of the producer and of a consumer warpgroup
 constexpr int kProducerRegs = 32;
 constexpr int kConsumerRegs = 112;
-
-static_assert(kQPerBlock == kConsumers * 64, "one m64 tile a consumer");
-static_assert(kTile == kWarpgroup, "one producer thread a tile row");
-
-// Bases of the block: the last valid base of any of its queries, plus 1;
-// 0 when none has a valid base.  Every thread of the block calls it; *nb
-// is a shared int.
-__device__ __forceinline__ int block_bases(const ulonglong2* __restrict__ q,
-                                           int nq, int* nb) {
-  const int qi = blockIdx.x * kQPerBlock + threadIdx.x;
-  const unsigned long long valid =
-      threadIdx.x < kQPerBlock && qi < nq ? q[qi].y : 0ull;
-  int need = valid ? (63 - __clzll(valid)) / 2 + 1 : 0;
-  need = __reduce_max_sync(0xffffffffu, need);
-  if (threadIdx.x == 0) *nb = 0;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0 && need) atomicMax(nb, need);
-  __syncthreads();
-  return *nb;
-}
-
-// The code planes of a packed row: bit 2i of m[k][h] is set iff base
-// 16 h + i is valid with code k.
-__device__ __forceinline__ void code_planes(const ulonglong2 row,
-                                            uint32_t (&m)[4][2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint32_t x = static_cast<uint32_t>(row.x >> (32 * h));
-    const uint32_t v = static_cast<uint32_t>(row.y >> (32 * h));
-    const uint32_t hi = (x >> 1) & 0x55555555u;
-    m[0][h] = v & ~hi & ~x;
-    m[1][h] = v & ~hi & x;
-    m[2][h] = v & hi & ~x;
-    m[3][h] = v & hi & x;
-  }
-}
-
-// Byte j of a code plane's half, spread to a one-hot word: byte b of the
-// word is bit 8j + 2b of the plane.  The four bits move to bits 8b with
-// one multiply (on the FMA pipe, beside the ALU work): their copies
-// shifted by 6b' collide only on bits that the mask drops.
-__device__ __forceinline__ uint32_t spread(uint32_t plane, int j) {
-  const uint32_t b = (plane >> (8 * j)) & 0x55u;
-  return (b * 0x41041u) & 0x01010101u;
-}
-
-// The producer warpgroup: thread p decodes row p of every tile of the
-// split's rows [lo, hi) into the ring (rows at or past hi decode to
-// zeros), with the bias lane if kBias.
-template <int KS, bool kBias>
-__device__ __forceinline__ void produce(const ulonglong2* __restrict__ db,
-                                        int lo, int hi, uint8_t* ring,
-                                        uint32_t full, uint32_t empty) {
-  const ulonglong2 zero = make_ulonglong2(0ull, 0ull);
-  const int p = threadIdx.x;
-  const int n_tiles = (hi - lo + kTile - 1) / kTile;
-  const int row_off = (p >> 3) * (256 * KS) + (p & 7) * 16;
-  ulonglong2 row, next = lo + p < hi ? db[lo + p] : zero;
-  gm::produce_tiles<kStageBytes>(
-      n_tiles, ring, full, empty,
-      [&](int t) {
-        row = next;
-        const int r = lo + (t + 1) * kTile + p;
-        next = r < hi ? db[r] : zero;
-      },
-      [&](uint8_t* stage) {
-        uint4* dst = reinterpret_cast<uint4*>(stage + row_off);
-        uint32_t m[4][2];
-        code_planes(row, m);
-#pragma unroll
-        for (int c = 0; c < 2 * KS; ++c) {
-          uint32_t w0 = spread(m[0][c >> 2], c & 3);
-          // the bias lane: code-0 byte of base 8 KS - 1, byte 3 of word 0
-          // of the last chunk
-          if (kBias && c == 2 * KS - 1)
-            w0 = (w0 & 0x00ffffffu) | 0x01000000u;
-          dst[8 * c] = make_uint4(w0, spread(m[1][c >> 2], c & 3),
-                                  spread(m[2][c >> 2], c & 3),
-                                  spread(m[3][c >> 2], c & 3));
-        }
-      });
-}
-
-// The m64 tile's product with the ring stage at descriptor desc, KS k32
-// steps in one commit group: the sums start at the bias lane's product
-// (kBias) or at bias.
-template <int KS, bool kBias>
-__device__ __forceinline__ void product(int (&d)[64],
-                                        const uint32_t (&a)[KS][4],
-                                        uint64_t desc, int bias) {
-  if constexpr (!kBias) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = bias;
-  }
-  gm::wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < KS; ++s)
-    gm::wgmma_m64n128k32_s8(d, a[s], desc + 16 * s, kBias && s == 0 ? 0 : 1);
-  gm::wgmma_commit();
-}
 
 // A consumer warpgroup: its 64 queries against every tile of the split.
 template <int KS, bool kBias>
@@ -182,8 +80,6 @@ __device__ __forceinline__ void consume(const ulonglong2* __restrict__ q,
                                         int nq, int lo, int hi, int thresh,
                                         int* __restrict__ out, uint32_t ring,
                                         uint32_t full, uint32_t empty) {
-  const ulonglong2 zero = make_ulonglong2(0ull, 0ull);
-  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
   // consumer c holds queries 64 c .. 64 c + 63 of the block, its warp w
   // rows 16 w .. 16 w + 15 of those
   const int c = (threadIdx.x - kWarpgroup) / kWarpgroup;
@@ -191,35 +87,7 @@ __device__ __forceinline__ void consume(const ulonglong2* __restrict__ q,
                  ((threadIdx.x >> 5) & 3) * 16;
   const int bias = -(thresh + 1);
   uint32_t a[KS][4];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int qi = qw + 8 * half + g;
-    const ulonglong2 row = qi < nq ? q[qi] : zero;
-    uint32_t m[4][2];
-    code_planes(row, m);
-    // the lane's plane t, selected without indexing registers at run time
-    uint32_t mine[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      mine[h] = t4 == 0 ? m[0][h] : t4 == 1 ? m[1][h] : t4 == 2 ? m[2][h]
-                                                                : m[3][h];
-    // registers 0 and 1: chunk 2s, word t; 2 and 3: chunk 2s + 1, word t
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      a[s][half] = spread(mine[s >> 1], (2 * s) & 3);
-      a[s][2 + half] = spread(mine[s >> 1], (2 * s + 1) & 3);
-    }
-    // the bias lane: register 2 + half of the last step in lane t 0, byte
-    // 3 (the block's base 8 KS - 1 is invalid, so the byte was 0)
-    if (kBias && t4 == 0)
-      a[KS - 1][2 + half] |= (static_cast<uint32_t>(bias) & 0xffu) << 24;
-  }
-  // opaque to the compiler, which would otherwise recompute the fragments
-  // from the planes before every product
-#pragma unroll
-  for (int s = 0; s < KS; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i]));
+  gm::onehot_a<KS, kBias>(a, q, nq, qw, bias);
   int cnt[2] = {};
   const int n_tiles = (hi - lo + kTile - 1) / kTile;
   const uint64_t desc0 = gm::smem_desc(ring, 128, 256 * KS);
@@ -228,22 +96,12 @@ __device__ __forceinline__ void consume(const ulonglong2* __restrict__ q,
   gm::consume_tiles(
       n_tiles, full, empty, acc,
       [&](int st) {
-        product<KS, kBias>(acc, a, desc0 + st * kStageDesc, bias);
+        gm::onehot_product<KS, kBias>(acc, a, desc0 + st * kStageDesc, bias,
+                                      bias);
       },
       [&](int) { gm::count_tile(cnt, acc); });
   gm::add_row_counts(cnt, out, nq, qw);
 }
-
-#define GM_COUNT_CASES(CALL)            \
-  case 0: CALL(1, false); break;        \
-  case 1: CALL(1, true); break;         \
-  case 2: CALL(2, false); break;        \
-  case 3: CALL(2, true); break;         \
-  case 4: CALL(3, false); break;        \
-  case 5: CALL(3, true); break;         \
-  case 6: CALL(4, false); break;        \
-  case 7: CALL(4, true); break;         \
-  default: break;
 
 __global__ void __launch_bounds__(gm::kRingThreads, 1)
     count_kernel(const ulonglong2* __restrict__ q, int nq,
@@ -253,28 +111,26 @@ __global__ void __launch_bounds__(gm::kRingThreads, 1)
   __shared__ int nb_shared;
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(nd, lo + rows_per_split);
-  const int nb = block_bases(q, nq, &nb_shared);
+  const int nb = gm::block_bases(q, nq, &nb_shared);
   // no query of the block has a valid base, or the split is empty: the
   // block counts nothing
   if (nb == 0 || lo >= hi) return;
-  const int ks = (nb + 7) / 8;
-  const int cfg = 2 * (ks - 1) + (nb % 8 != 0);
+  const int cfg = gm::onehot_config(nb);
   gm::ring_roles<kStageBytes, kProducerRegs, kConsumerRegs>(
       smem,
       [&](uint8_t* ring, uint32_t full, uint32_t empty) {
-#define GM_PRODUCE(KS, B) produce<KS, B>(db, lo, hi, ring, full, empty)
-        switch (cfg) { GM_COUNT_CASES(GM_PRODUCE) }
+#define GM_PRODUCE(KS, B) \
+  gm::produce_onehot<KS, B>(db, lo, hi, ring, full, empty)
+        switch (cfg) { GM_ONEHOT_CASES(GM_PRODUCE) }
 #undef GM_PRODUCE
       },
       [&](uint32_t ring, uint32_t full, uint32_t empty) {
 #define GM_CONSUME(KS, B) \
   consume<KS, B>(q, nq, lo, hi, thresh, out, ring, full, empty)
-        switch (cfg) { GM_COUNT_CASES(GM_CONSUME) }
+        switch (cfg) { GM_ONEHOT_CASES(GM_CONSUME) }
 #undef GM_CONSUME
       });
 }
-
-#undef GM_COUNT_CASES
 
 }  // namespace
 

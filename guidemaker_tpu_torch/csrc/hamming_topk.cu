@@ -1,6 +1,7 @@
 // Top-k kernel: for each query, the k smallest packed keys
 // (dist << 24) | idx over the whole database, ascending, with the match
-// counts taken on the int8 tensor cores.
+// counts taken on the int8 tensor cores through Hopper's warpgroup product
+// (wgmma).
 //
 // Replaces two Pallas kernels of the JAX package:
 // guidemaker_tpu/knn/pallas_stream.py:_stream_kernel (launched by
@@ -12,204 +13,187 @@
 // What bounds it on an H100: operations.  The match counts are the count
 // kernel's one-hot product, 2 * nq * nd * 4L int8 operations (1,979 TOP/s
 // dense), where the function needs 3L lanes a pair (the bound that
-// chip_smoke.py states, as in hamming_count.cu).  Building a key and testing it against a running top-K list is
-// CUDA-core work that would cost several times the product if every pair
-// paid it; the gated epilogue below makes most pairs pay nothing.  The
-// design:
-//   * the product is the count kernel's (mma_common.cuh): 8 warps of 32
-//     queries held as A fragments, 128-row one-hot database tiles in shared
-//     memory read by ldmatrix.x4, the next tile prefetched in registers,
-//     mma.sync.m16n8k32 s8 on 32 database rows a warp, the k32 steps (1..4,
-//     a template parameter) taken from the last valid base of the block's
-//     queries;
-//   * lane r of a warp owns query row r: its ascending list of K keys in
-//     registers (K is k rounded up to a power of two, a template parameter,
-//     so every index into the list is static);
-//   * the gate: each row's accumulators start at a bias dK - L - 1, where dK
-//     is the distance of the owner's K-th key (L + 1 while the list is not
-//     full), so a sum is >= 0 iff the pair is closer than that key.  Within
-//     a split the columns come in ascending index, so a pair at dK itself
-//     could never enter the list.  A lane ANDs its 32 sums; if no lane of
-//     the warp holds one >= 0 (__any_sync), the batch costs nothing more.
-//     Once the lists fill, that is the common case;
-//   * otherwise each lane stages its 32 sums as bytes (they lie in
-//     [-33, 32]) in its warp's 1 KB of shared memory; each owner reads its
-//     row's 32, and for each sum >= 0 on a column below the split's end
-//     (a padding column decodes to 0 matches, distance L) builds the key
-//     and inserts it where it beats the K-th key.  The exact compare
-//     decides, so the result does not depend on the gate or on the order of
-//     insertion.  The owners then hand their new biases to the quads by 4
-//     shuffles;
+// chip_smoke.py states, as in hamming_count.cu).  Building a key and
+// testing it against a running top-K list is CUDA-core work that would cost
+// several times the product if every pair paid it, so the design makes the
+// product the count kernel's and the common pair cost what the count's
+// threshold costs:
+//   * block: the count kernel's (hamming_count.cu, onehot_wgmma.cuh,
+//     wgmma_common.cuh): one producer warpgroup decodes the split's packed
+//     database rows into a 4-stage shared-memory ring of 128-row one-hot
+//     tiles, four consumer warpgroups of 64 queries hold their A fragments
+//     in registers and take turns to issue KS wgmma m64n128k32 s8 a tile
+//     (KS, 1..4, from the last valid base of the block's queries), 640
+//     threads, one block an SM;
+//   * the gate rides in the product: each row's sums start at its bias
+//     b = dK - L - 1, dK its gate distance (L + 1 while its lists are not
+//     full), so a sum is >= 0 iff the pair is closer than dK.  The bias sits
+//     in the bias lane of the row's A fragment (onehot_wgmma.cuh), which the
+//     epilogue rewrites after the tile's wgmma_wait when the gate moves (the
+//     next product's wgmma_fence orders the write before it is read); blocks
+//     with no spare lane start the accumulators at the bias instead;
+//   * epilogue (wgmma_common.cuh): a chain of ANDs over each row's 32 sums
+//     and a sign test, as the count's; only a row with a sum >= 0 goes on,
+//     and the exact key compare decides each insertion.  Once the lists
+//     fill, most tiles cost what they cost the count kernel;
+//   * lists, K (k rounded up to a power of two) a template parameter: for
+//     K <= 32 each thread keeps a sub-list of K keys for each of its two
+//     rows over its own columns, in shared memory (2 K ints a thread,
+//     128 KB at K 32 beside the 65.6 KB ring; registers for K 8 spilled
+//     beside the 64 accumulators), gated by the quad's four sub-lists
+//     (wgmma_common.cuh: QuadLists; a shuffle round when a list changes)
+//     and merged by the quad at the end of the split; for K 64 and 128
+//     each row keeps one list in shared memory (256 rows x (K + 1) ints,
+//     132 KB at K 128), which the quad's lanes fill in turn (RowLists).
+//     knum 3 and 5 and the control checks' k 1 take K 4, 8 and 1;
+//   * a lane turns only its own candidates into keys (a mask of its sums
+//     >= 0, the sums packed to bytes), so a warp takes as many turns as its
+//     busiest lane, not one for each sum that some lane passes;
+//   * padding rows past the split carry the bias lane's 1, so a padding
+//     column can pass a zero bias; the epilogue drops it by index;
 //   * a block whose queries are all N runs the 1-step product on zeros:
 //     every pair is at distance L, and the lists take the lowest indices;
 //   * the database is cut into gridDim.y splits of whole tiles to fill the
-//     card; each split writes its own sorted list to (nq, n_splits, K), and
+//     card (the wrapper's plan; an empty split writes empty lists); each
+//     split writes its own sorted lists to (nq, n_splits, K), and
 //     gm::merge_kernel (topk_common.cuh) folds the splits into the final
 //     (nq, k) by key, so ties go to the lower index.
-// At K >= 16 the list no longer fits beside the fragments in the 128
-// registers that two blocks an SM allow, so those kernels are built for one
-// block an SM.
-// Targets sm_90a (mma.sync and ldmatrix exist from sm_80; wgmma and TMA,
-// Hopper's faster path to the tensor cores, are not used).
+// Targets sm_90a: wgmma and setmaxnreg exist for no other target.
 #include <stdint.h>
 
-#include "mma_common.cuh"
+#include <type_traits>
+
+#include "onehot_wgmma.cuh"
 #include "topk_common.cuh"
 
 namespace {
 
-using gm::kMTiles;
-using gm::kNTiles;
 using gm::kQPerBlock;
-using gm::kThreads;
 using gm::kTile;
+using gm::kWarpgroup;
 
-// a warp's staging buffer: one byte for each of its 32 query rows x 32
-// batch rows; lane (g, t) puts batch row 8 nt + 2t + e of each of its rows
-// at byte 8t + 2nt + e, so its 8 bytes of a row are one store
-constexpr int kStage = 32 * gm::kBatch;
+constexpr int kStageBytes = gm::kOnehotStageBytes;
+constexpr int kRingBytes = gm::ring_smem_bytes(kStageBytes);
+// registers a thread of the producer and of a consumer warpgroup
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 112;
+constexpr int kConsumerThreads = gm::kConsumers * kWarpgroup;
+// the largest K whose sub-lists fit in shared memory beside the ring
+constexpr int kSubListK = 32;
 
-// The low bytes of four sums, in order.
-__device__ __forceinline__ uint32_t pack4(int b0, int b1, int b2, int b3) {
-  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
-                     0x5410);
+template <int K>
+using Lists = std::conditional_t<(K <= kSubListK),
+                                 gm::QuadLists<K, kConsumerThreads>,
+                                 gm::RowLists<K>>;
+
+// dynamic shared memory of the kernel at K: the ring, then the lists
+template <int K>
+constexpr int smem_bytes() {
+  if constexpr (K <= kSubListK)
+    return kRingBytes + 4 * 2 * K * kConsumerThreads;
+  else
+    return kRingBytes + 4 * gm::RowLists<K>::ints(kQPerBlock);
 }
 
-template <int K, int KS>
-__device__ __forceinline__ void topk_block(
-    const ulonglong2* __restrict__ q, int nq,
-    const ulonglong2* __restrict__ db, int lo, int hi, int length,
-    int* __restrict__ partial, uint8_t* tile, uint8_t* stage) {
-  const ulonglong2 zero = make_ulonglong2(0ull, 0ull);
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qw = blockIdx.x * kQPerBlock + (threadIdx.x >> 5) * 32;
-  uint32_t a[kMTiles][KS][4];
-  gm::load_a<KS>(a, q, nq, qw);
-
-  // the list of query qw + lane, and its row's bias; 0 while not full
-  int best[K];
+// A consumer warpgroup: the lists of its 64 queries over the split's rows
+// [lo, hi), written to partial.
+template <int K, int KS, bool kBias>
+__device__ __forceinline__ void consume(const ulonglong2* __restrict__ q,
+                                        int nq, int lo, int hi, int length,
+                                        int* __restrict__ partial,
+                                        int* list_smem, uint32_t ring,
+                                        uint32_t full, uint32_t empty) {
+  // consumer c holds queries 64 c .. 64 c + 63 of the block, its warp w
+  // rows 16 w .. 16 w + 15 of those, the lane rows g and g + 8 of the warp
+  const int c = (threadIdx.x - kWarpgroup) / kWarpgroup;
+  const int warp_row = 64 * c + ((threadIdx.x >> 5) & 3) * 16;
+  const int row = warp_row + ((threadIdx.x & 31) >> 2);
+  uint32_t a[KS][4];
+  // the lists start empty: bias 0
+  gm::onehot_a<KS, kBias>(a, q, nq, blockIdx.x * kQPerBlock + warp_row, 0);
+  int bias[2] = {0, 0};
+  Lists<K> lists(list_smem, row, threadIdx.x - kWarpgroup);
+  const int n_tiles = (hi - lo + kTile - 1) / kTile;
+  const uint64_t desc0 = gm::smem_desc(ring, 128, 256 * KS);
+  constexpr uint64_t kStageDesc = kStageBytes >> 4;
+  int acc[64] = {};
+  gm::consume_tiles(
+      n_tiles, full, empty, acc,
+      [&](int st) {
+        gm::onehot_product<KS, kBias, true>(
+            acc, a, desc0 + st * kStageDesc, bias[0], bias[1]);
+      },
+      [&](int t) {
+        // dist = L + bias - sum
+        const int dbase[2] = {length + bias[0], length + bias[1]};
+        const bool put = lists.tile(acc, dbase, lo + t * kTile, hi);
+        if (!__any_sync(0xffffffffu, put)) return;
+        lists.gate(length, bias);
+        if constexpr (kBias) gm::set_bias_lane(a, bias);
+      });
+  int* out[2];
 #pragma unroll
-  for (int i = 0; i < K; ++i) best[i] = gm::kInfKey;
-  int own_bias = 0;
-  // the biases of the rows 16 mt + 8 half + g that this lane's sums hold
-  int bias[kMTiles][2] = {};
-  uint2* put = reinterpret_cast<uint2*>(stage) + g * 4 + t;
-  const uint4* row = reinterpret_cast<const uint4*>(stage + 32 * lane);
-
-  const int r = threadIdx.x >> 1;
-  uint4* dst = gm::decode_dst<KS>(tile);
-  const uint32_t src = gm::ldsm_src<KS>(tile);
-
-  ulonglong2 next = lo + r < hi ? db[lo + r] : zero;
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    gm::decode_row<KS>(dst, next);
-    __syncthreads();
-    const int rows = min(kTile, hi - t0);
-    next = t0 + kTile + r < hi ? db[t0 + kTile + r] : zero;
-#pragma unroll 1
-    for (int n0 = 0; n0 < rows; n0 += gm::kBatch) {
-      int acc[kMTiles][kNTiles][4];
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = bias[mt][i >> 1];
-      gm::mma_batch<KS>(acc, a, src, n0);
-      int all = -1;
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) all &= acc[mt][nt][i];
-      // the sign bit survives the AND iff every sum is < 0
-      if (!__any_sync(0xffffffffu, all >= 0)) continue;
-
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          put[(mt * 16 + h * 8) * 4] = make_uint2(
-              pack4(acc[mt][0][2 * h], acc[mt][0][2 * h + 1],
-                    acc[mt][1][2 * h], acc[mt][1][2 * h + 1]),
-              pack4(acc[mt][2][2 * h], acc[mt][2][2 * h + 1],
-                    acc[mt][3][2 * h], acc[mt][3][2 * h + 1]));
-      __syncwarp();
-      const uint4 w0 = row[0], w1 = row[1];
-      __syncwarp();  // the buffer is free for the next batch
-      const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      const int col0 = t0 + n0;
-      const int dbase = length + own_bias;  // dist = dbase - sum
-#pragma unroll
-      for (int wi = 0; wi < 8; ++wi) {
-        uint32_t pass = ~w[wi] & 0x80808080u;  // the sums >= 0
-        while (pass) {
-          const int bit = __ffs(pass) - 1;  // 8 byte + 7
-          pass &= pass - 1;
-          const int byte = bit >> 3;
-          // byte 4 wi + byte = 8t + 2nt + e holds batch row 8 nt + 2t + e
-          const int col = col0 + 8 * (2 * (wi & 1) + (byte >> 1)) +
-                          2 * (wi >> 1) + (byte & 1);
-          const int sum = static_cast<int8_t>(w[wi] >> (bit - 7));
-          const int key = ((dbase - sum) << gm::kIdxBits) | col;
-          if (col < hi && key < best[K - 1]) gm::insert<K>(best, key);
-        }
-      }
-      own_bias = min(best[K - 1] >> gm::kIdxBits, length + 1) - length - 1;
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          bias[mt][h] = __shfl_sync(0xffffffffu, own_bias, mt * 16 + h * 8 + g);
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int qi = blockIdx.x * kQPerBlock + row + 8 * h;
+    out[h] = qi < nq ? partial + (static_cast<size_t>(qi) * gridDim.y +
+                                  blockIdx.y) * K
+                     : nullptr;
   }
-  const int qi = qw + lane;
-  if (qi < nq) {
-    int* o = partial + (static_cast<size_t>(qi) * gridDim.y + blockIdx.y) * K;
-#pragma unroll
-    for (int i = 0; i < K; ++i) o[i] = best[i];
-  }
+  lists.write(out);
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, K <= 8 ? 2 : 1)
+__global__ void __launch_bounds__(gm::kRingThreads, 1)
     topk_kernel(const ulonglong2* __restrict__ q, int nq,
                 const ulonglong2* __restrict__ db, int nd, int length,
                 int rows_per_split, int* __restrict__ partial) {
-  __shared__ __align__(16) uint8_t tile[kTile * gm::kMaxStride];
-  __shared__ __align__(16) uint8_t stage[gm::kWarps * kStage];
-  __shared__ int steps;
-  uint8_t* warp_stage = stage + (threadIdx.x >> 5) * kStage;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ int nb_shared;
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(nd, lo + rows_per_split);
-  switch (gm::block_steps(q, nq, &steps)) {
-    case 0:  // every query of the block is all N: the product is all zeros
-    case 1:
-      topk_block<K, 1>(q, nq, db, lo, hi, length, partial, tile, warp_stage);
-      break;
-    case 2:
-      topk_block<K, 2>(q, nq, db, lo, hi, length, partial, tile, warp_stage);
-      break;
-    case 3:
-      topk_block<K, 3>(q, nq, db, lo, hi, length, partial, tile, warp_stage);
-      break;
-    case 4:
-      topk_block<K, 4>(q, nq, db, lo, hi, length, partial, tile, warp_stage);
-      break;
+  if (lo >= hi) {
+    // an empty split: its lists hold no key, for the merge to read
+    const int qi = blockIdx.x * kQPerBlock + threadIdx.x;
+    if (threadIdx.x < kQPerBlock && qi < nq)
+      for (int i = 0; i < K; ++i)
+        partial[(static_cast<size_t>(qi) * gridDim.y + blockIdx.y) * K + i] =
+            gm::kInfKey;
+    return;
   }
+  // a block whose queries are all N takes the 1-step product of zeros
+  const int nb = max(1, gm::block_bases(q, nq, &nb_shared));
+  const int cfg = gm::onehot_config(nb);
+  int* lists = reinterpret_cast<int*>(smem + kRingBytes);
+  gm::ring_roles<kStageBytes, kProducerRegs, kConsumerRegs>(
+      smem,
+      [&](uint8_t* ring, uint32_t full, uint32_t empty) {
+#define GM_PRODUCE(KS, B) \
+  gm::produce_onehot<KS, B>(db, lo, hi, ring, full, empty)
+        switch (cfg) { GM_ONEHOT_CASES(GM_PRODUCE) }
+#undef GM_PRODUCE
+      },
+      [&](uint32_t ring, uint32_t full, uint32_t empty) {
+#define GM_CONSUME(KS, B)                                              \
+  consume<K, KS, B>(q, nq, lo, hi, length, partial, lists, ring,     \
+                    full, empty)
+        switch (cfg) { GM_ONEHOT_CASES(GM_CONSUME) }
+#undef GM_CONSUME
+      });
 }
 
 template <int K>
 int launch(const void* q, int nq, const void* db, int nd, int length, int k,
            int n_splits, void* partial, void* out, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<K>();
+  const cudaError_t err =
+      gm::ring_kernel_ready<kProducerRegs, kConsumerRegs>(topk_kernel<K>,
+                                                          kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // whole tiles a split, so that only the last split has a ragged tile
   const int tiles = (nd + kTile - 1) / kTile;
   const int rows_per_split = (tiles + n_splits - 1) / n_splits * kTile;
   const dim3 grid((nq + kQPerBlock - 1) / kQPerBlock, n_splits);
-  topk_kernel<K><<<grid, kThreads, 0, stream>>>(
+  topk_kernel<K><<<grid, gm::kRingThreads, kSmem, stream>>>(
       static_cast<const ulonglong2*>(q), nq,
       static_cast<const ulonglong2*>(db), nd, length, rows_per_split,
       static_cast<int*>(partial));

@@ -1,29 +1,22 @@
-// Shared pieces of the mma.sync kernels on the tensor cores, first of the
-// 2-bit top-k (hamming_topk.cu): the one-hot layout, the block shape, the
-// A fragments decoded from the packed query rows, the database tile
-// decoded into shared memory, one warp's product with 32 of its rows, and
-// the count epilogue.  The packed-pair kernels (packed_common.cuh) share its
-// block shape, tile height, ldmatrix addressing, mma wrapper, cp.async tile
-// ring and count epilogue; the 3-gram count (feature_count.cu) all of these
-// but the one-hot layout, with the 1-bit product in place of the int8 one.
-// The 2-bit count (hamming_count.cu, on wgmma) takes its block and tile
+// Shared pieces of the mma.sync kernels on the tensor cores: the block
+// shape, the ldmatrix addressing of a shared-memory tile, the mma.sync
+// wrappers (s8 m16n8k32, b1 m16n8k256), one warp's product with 32 rows of
+// a tile, the count epilogue and a cp.async tile ring.  The packed-pair
+// top-k (packed_common.cuh) shares its block shape, tile height, ldmatrix
+// addressing, mma wrapper and cp.async tile ring; the 3-gram count
+// (feature_count.cu) all of these, with the 1-bit product, and the count
+// epilogue; the tensor-core rate probe (mma_rate.cu) the wrappers.  The
+// wgmma kernels (onehot_wgmma.cuh, packed_count.cu) take its block and tile
 // heights.
 //
-// Layout: base i of a packed row (hamming_common.cuh) becomes the 32-bit
-// word `valid_i ? 1 << (8 * code_i) : 0`, four one-hot bytes, and a row
-// becomes K = 32 * steps bytes for its first 8 * steps bases.  An N, a base
-// past L, a query past nq and a database row past the split all decode to
-// zeros, which match nothing.  The int8 product of two such rows is their
-// match count.
-//
 // Block: 8 warps; each holds 2 m16 tiles (32 queries) as A fragments in
-// registers for the whole database loop.  Database tiles of 128 rows are
-// decoded once by the block into shared memory (row stride 32 * steps + 16
-// bytes, an odd number of 16-byte units, so the 8 row addresses of an
-// ldmatrix phase fall in 8 different bank groups) and read with
-// ldmatrix.x4, one per k32 step for two n8 tiles.  A warp multiplies 4 n8
-// tiles (32 database rows) with mma.sync.m16n8k32 s8 before its epilogue,
-// which gives the tensor pipe 8 independent accumulator chains.
+// registers for the whole database loop.  Database tiles of 128 rows lie in
+// shared memory at a row stride of 32 * steps + 16 bytes, an odd number of
+// 16-byte units, so the 8 row addresses of an ldmatrix phase fall in 8
+// different bank groups, and are read with ldmatrix.x4, one per k32 step
+// for two n8 tiles.  A warp multiplies 4 n8 tiles (32 database rows)
+// before its epilogue, which gives the tensor pipe 8 independent
+// accumulator chains.
 //
 // In the accumulator layout, lane 4g + t holds, for m16 tile mt and n8
 // tile nt, acc[mt][nt][i] = the sum of query row 16 mt + 8 (i >> 1) + g of
@@ -48,19 +41,9 @@ constexpr int kBatch = 8 * kNTiles;
 constexpr int kTile = 128;
 // k32 steps of a 32-base row
 constexpr int kMaxSteps = 4;
-constexpr int kMaxStride = 32 * kMaxSteps + 16;
 
-static_assert(kQPerBlock == kThreads, "one query a thread in the step scan");
-static_assert(kTile * 2 == kThreads, "two threads decode each tile row");
 static_assert(kNTiles % 2 == 0 && kTile % kBatch == 0,
               "one ldmatrix.x4 a k32 step covers two n8 tiles");
-
-// One-hot word of base j of a packed row: byte code_j is 1 when valid.
-__device__ __forceinline__ uint32_t onehot(const ulonglong2 row, int j) {
-  const uint32_t c = static_cast<uint32_t>(row.x >> (2 * j)) & 3u;
-  const uint32_t v = static_cast<uint32_t>(row.y >> (2 * j)) & 1u;
-  return v << (8 * c);
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -97,66 +80,6 @@ __device__ __forceinline__ void mma_step(int (&d)[4], const uint32_t (&a)[4],
     mma_b1(d, a, b0, b1);
   else
     mma_s8(d, a, b0, b1);
-}
-
-// k32 steps of the block: enough for the last valid base of any of its
-// queries; 0 when none has a valid base.  Every thread of the block calls
-// it; *steps is a shared int.
-__device__ __forceinline__ int block_steps(const ulonglong2* __restrict__ q,
-                                           int nq, int* steps) {
-  const int qi = blockIdx.x * kQPerBlock + threadIdx.x;
-  const unsigned long long valid = qi < nq ? q[qi].y : 0ull;
-  int need = valid ? ((63 - __clzll(valid)) / 2 + 8) / 8 : 0;
-  need = __reduce_max_sync(0xffffffffu, need);
-  if (threadIdx.x == 0) *steps = 0;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) atomicMax(steps, need);
-  __syncthreads();
-  return *steps;
-}
-
-// The A fragments of the warp's queries qw..qw+31: rows g and g+8 of each
-// m16 tile; base 8s+t in registers 0 and 1, base 8s+4+t in registers 2 and
-// 3 (the s8 m16n8k32 layout).
-template <int KS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[kMTiles][KS][4],
-                                       const ulonglong2* __restrict__ q,
-                                       int nq, int qw) {
-  const ulonglong2 zero = make_ulonglong2(0ull, 0ull);
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qi = qw + mt * 16 + half * 8 + g;
-      const ulonglong2 row = qi < nq ? q[qi] : zero;
-#pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        a[mt][s][half] = onehot(row, 8 * s + t);
-        a[mt][s][2 + half] = onehot(row, 8 * s + 4 + t);
-      }
-    }
-  }
-}
-
-// The tile decode: thread (r, h) = (threadIdx.x / 2, threadIdx.x % 2)
-// writes bases [4 KS h, 4 KS (h + 1)) of tile row r, decoded from its
-// packed row, to dst = decode_dst<KS>(tile).
-template <int KS>
-__device__ __forceinline__ uint4* decode_dst(uint8_t* tile) {
-  const int r = threadIdx.x >> 1, h = threadIdx.x & 1;
-  return reinterpret_cast<uint4*>(tile + r * (32 * KS + 16)) + h * KS;
-}
-
-template <int KS>
-__device__ __forceinline__ void decode_row(uint4* dst, const ulonglong2 row) {
-  const int h = threadIdx.x & 1;
-#pragma unroll
-  for (int i = 0; i < KS; ++i) {
-    const int j = 4 * KS * h + 4 * i;
-    dst[i] = make_uint4(onehot(row, j), onehot(row, j + 1),
-                        onehot(row, j + 2), onehot(row, j + 3));
-  }
 }
 
 // The lane's ldmatrix.x4 address of tile row 0: lanes 8m..8m+7 address

@@ -4,8 +4,9 @@
 // m64n128k32 product with A in registers, its fences, commit and wait,
 // the mbarriers of a shared-memory ring, named barriers, and setmaxnreg,
 // all inline PTX for sm_90a (wgmma and setmaxnreg exist for no other
-// target); then the block both count kernels are built on (ring_roles,
-// produce_tiles, consume_tiles) and its count epilogue.
+// target); then the block the count kernels and the 2-bit top-k are built
+// on (ring_roles, produce_tiles, consume_tiles), its count epilogue
+// (count_tile) and its top-k epilogue (QuadLists, RowLists).
 //
 // The block: one producer warpgroup fills a ring of kStages shared-memory
 // tiles of 128 B rows, each signalled on its `full` mbarrier; kConsumers
@@ -30,9 +31,9 @@
 //
 // A fragments (wgmma with A in registers, .s8): warp w of the warpgroup
 // holds rows 16 w .. 16 w + 15 of the m64 tile in the layout of
-// mma.m16n8k32's A (mma_common.cuh load_a): lane 4g + t holds in register
-// 0 row g, K bytes 4t..4t+3, in 1 row g + 8, the same bytes, in 2 and 3
-// the same rows at K bytes 16 + 4t .. 16 + 4t + 3.
+// mma.m16n8k32's A (onehot_wgmma.cuh onehot_a): lane 4g + t holds in
+// register 0 row g, K bytes 4t..4t+3, in 1 row g + 8, the same bytes, in
+// 2 and 3 the same rows at K bytes 16 + 4t .. 16 + 4t + 3.
 //
 // Accumulators (m64nNk32 .s32): lane 4g + t of warp w holds in d[4j + i]
 // the sum of row 16 w + g + 8 (i >> 1) with column 8 j + 2 t + (i & 1).
@@ -41,6 +42,7 @@
 #include <stdint.h>
 
 #include "hamming_common.cuh"
+#include "topk_common.cuh"
 
 namespace gm {
 
@@ -114,6 +116,40 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d)
+      : "memory");
+}
+
+// d = a x B over one k32 step, as wgmma_m64n128k32_s8 with scale_d 0, but
+// with d an output only: the compiler may take d's registers as dead from
+// the last read of the previous sums to this product.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_fresh(
+    int (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+        "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]),
+        "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]),
+        "=r"(d[15]), "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]), "=r"(d[24]),
+        "=r"(d[25]), "=r"(d[26]), "=r"(d[27]), "=r"(d[28]), "=r"(d[29]),
+        "=r"(d[30]), "=r"(d[31]), "=r"(d[32]), "=r"(d[33]), "=r"(d[34]),
+        "=r"(d[35]), "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]), "=r"(d[44]),
+        "=r"(d[45]), "=r"(d[46]), "=r"(d[47]), "=r"(d[48]), "=r"(d[49]),
+        "=r"(d[50]), "=r"(d[51]), "=r"(d[52]), "=r"(d[53]), "=r"(d[54]),
+        "=r"(d[55]), "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc)
       : "memory");
 }
 
@@ -280,18 +316,12 @@ __device__ __forceinline__ void consume_tiles(int n_tiles, uint32_t full,
   }
 }
 
-// The count epilogue of an m64 tile's sums: a pair counts iff its sum is
-// >= 0 and, if kMasked, its column is below limit.  Query row 8 h + g of
-// the warp's 16 holds d[4j + 2h + c] (j 0..15, c 0..1), column
-// 8 j + 2 t + c: the AND of each row's 32 sums keeps its sign bit iff
-// none counts, the common case; a row where some counts adds 32 less its
-// negative (or masked) sums to cnt[h], one shift-add a sum.  The ANDs run
-// in one chain per row: the same ANDs as a tree made both count kernels
-// 2.3 to 9 times slower on the card.
-template <bool kMasked = false>
-__device__ __forceinline__ void count_tile(int (&cnt)[2], const int (&d)[64],
-                                           int limit = 0) {
-  int all[2];
+// The AND of each of the lane's two rows' 32 sums, in one chain a row (a
+// tree of the same ANDs made both count kernels 2.3 to 9 times slower):
+// its sign bit survives iff no sum of the row is >= 0.  Query row 8 h + g
+// of the warp's 16 holds d[4j + 2h + c] (j 0..15, c 0..1), column
+// 8 j + 2 t + c.
+__device__ __forceinline__ void and_rows(int (&all)[2], const int (&d)[64]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     all[h] = d[2 * h] & d[2 * h + 1];
@@ -299,6 +329,18 @@ __device__ __forceinline__ void count_tile(int (&cnt)[2], const int (&d)[64],
     for (int j = 1; j < 16; ++j)
       all[h] &= d[4 * j + 2 * h] & d[4 * j + 2 * h + 1];
   }
+}
+
+// The count epilogue of an m64 tile's sums: a pair counts iff its sum is
+// >= 0 and, if kMasked, its column is below limit.  Where and_rows leaves
+// a row's sign bit, none counts, the common case; a row where some counts
+// adds 32 less its negative (or masked) sums to cnt[h], one shift-add a
+// sum.
+template <bool kMasked = false>
+__device__ __forceinline__ void count_tile(int (&cnt)[2], const int (&d)[64],
+                                           int limit = 0) {
+  int all[2];
+  and_rows(all, d);
   if ((all[0] & all[1]) < 0) return;
   // column 8 j + 2 t + c is below limit iff 8 j + c < limit - 2 t
   const int below = limit - 2 * (threadIdx.x & 3);
@@ -334,6 +376,309 @@ __device__ __forceinline__ void add_row_counts(const int (&cnt)[2],
     if (t == 0 && qi < nq && n != 0) atomicAdd(out + qi, n);
   }
 }
+
+// The top-k epilogue of the wgmma block (hamming_topk.cu), beside the
+// count's: each sum started at its row's bias b = dK - L - 1, dK the row's
+// gate distance (L + 1 while its lists are not full), so that the pair's
+// distance is L + b - sum and the sum is >= 0 iff that distance is below
+// dK.  Only pairs with a sum >= 0 on a column below the split's end hi
+// (padding columns past it carry the bias lane and can pass) are turned
+// into keys (dist << 24) | col, and the exact key compare decides each
+// insertion (topk_common.cuh insert), so the lists do not depend on the
+// gate or on the order of insertion.  Within a split the tiles come in
+// ascending column order, which makes a gate at dK itself safe: a pair at
+// distance dK loses to every key of distance <= dK that an earlier tile
+// gave.
+
+// The candidates of the lane's row h: bit i = 2j + c set iff its sum with
+// column col0 + 8j + 2t + c is >= 0 (one funnel shift a sum gathers the
+// sign bits) and the column lies below hi.
+__device__ __forceinline__ unsigned row_candidates(const int (&d)[64], int h,
+                                                   int col0, int hi) {
+  // four chains of 8, for latency: chain r gathers sums 8r .. 8r + 7
+  unsigned part[4] = {};
+#pragma unroll
+  for (int i = 7; i >= 0; --i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = 8 * r + i;
+      part[r] = __funnelshift_l(
+          static_cast<unsigned>(d[4 * (n >> 1) + 2 * h + (n & 1)]), part[r],
+          1);
+    }
+  const unsigned neg = part[0] | part[1] << 8 | part[2] << 16 |
+                       part[3] << 24;
+  // the lane's column 8j + c past its first lies below hi iff 8j + c < r
+  const int r = hi - col0 - 2 * static_cast<int>(threadIdx.x & 3);
+  if (r >= 128) return ~neg;
+  if (r <= 0) return 0u;
+  const int j = r >> 3, e = r & 7;
+  const unsigned below = ((1u << 2 * j) - 1) |
+                         (e >= 2 ? 3u : e) << 2 * j;
+  return ~neg & below;
+}
+
+// The lane's 32 sums of row h as bytes (they lie in [-33, 32]): byte
+// i % 4 of w[i / 4] holds sum i = 2j + c.
+__device__ __forceinline__ void row_bytes(uint32_t (&w)[8],
+                                          const int (&d)[64], int h) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    w[k] = __byte_perm(__byte_perm(d[8 * k + 2 * h], d[8 * k + 2 * h + 1],
+                                   0x0040),
+                       __byte_perm(d[8 * k + 4 + 2 * h],
+                                   d[8 * k + 5 + 2 * h], 0x0040),
+                       0x5410);
+}
+
+// Sum i of row_bytes, selected without indexing registers at run time.
+__device__ __forceinline__ int byte_sum(const uint32_t (&w)[8], int i) {
+  const bool b4 = i & 4, b8 = i & 8, b16 = i & 16;
+  const uint32_t x0 = b4 ? w[1] : w[0], x1 = b4 ? w[3] : w[2];
+  const uint32_t x2 = b4 ? w[5] : w[4], x3 = b4 ? w[7] : w[6];
+  const uint32_t y0 = b8 ? x1 : x0, y1 = b8 ? x3 : x2;
+  return static_cast<int8_t>((b16 ? y1 : y0) >> 8 * (i & 3));
+}
+
+// put(key) for each candidate of row_candidates, in ascending column, its
+// key (dist << 24) | col with dist = dbase - sum.  A lane loops over its
+// own candidates only, so a warp takes as many turns as its busiest lane.
+template <typename Put>
+__device__ __forceinline__ void each_candidate(unsigned m,
+                                               const uint32_t (&w)[8],
+                                               int dbase, int col0,
+                                               Put&& put) {
+  const int lane_col = col0 + 2 * static_cast<int>(threadIdx.x & 3);
+  while (m) {
+    const int i = __ffs(m) - 1;
+    m &= m - 1;
+    put(((dbase - byte_sum(w, i)) << kIdxBits) |
+        (lane_col + 8 * (i >> 1) + (i & 1)));
+  }
+}
+
+// The top-k lists of a wgmma block for K <= 32: each lane keeps, for each
+// of its two rows, the K smallest keys over its own columns (8j + 2t + c),
+// a sub-list, in shared memory: key i of row h of the lane in slot `slot`
+// (of kSlots lanes) at lists[(2i + h) kSlots + slot], so that a warp's
+// lanes touch 32 consecutive ints, and each lane reads and writes only its
+// own keys (registers for K 8 spilled beside the 64 accumulators, and ran
+// no faster at K 1 to 4).  A key of the row's top K stays in its lane's
+// sub-list, which drops a key only for K smaller ones, so at the end of
+// the split the K smallest of the quad's four sub-lists are the row's top
+// K.  The gate: at the start of a tile every sub-list's keys come from
+// earlier tiles, so from lower columns, and K of them at a distance <= x
+// mean that no pair of the tile at a distance >= x can enter the row's top
+// K.  Such an x is the K-th distance of one sub-list, the larger K/2-th of
+// two, or the largest K/4-th of four; the gate is the least of these over
+// the quad (the K-th distance of the four sub-lists together at K <= 2).
+template <int K, int kSlots>
+struct QuadLists {
+  int* at;
+
+  // Empty lists; slot is the lane's among the block's consumer lanes (the
+  // row is RowLists').
+  __device__ __forceinline__ QuadLists(int* lists, int, int slot)
+      : at(lists + slot) {
+#pragma unroll
+    for (int i = 0; i < 2 * K; ++i) at[i * kSlots] = kInfKey;
+  }
+
+  __device__ __forceinline__ int get(int h, int i) const {
+    return at[(2 * i + h) * kSlots];
+  }
+
+  __device__ __forceinline__ void read(int h, int (&l)[K]) const {
+#pragma unroll
+    for (int i = 0; i < K; ++i) l[i] = get(h, i);
+  }
+
+  // Insert k into row h's sub-list if it beats its K-th key; true iff so.
+  __device__ __forceinline__ bool insert_key(int h, int k) {
+    int l[K];
+    read(h, l);
+    if (k >= l[K - 1]) return false;
+    insert<K>(l, k);
+#pragma unroll
+    for (int i = 0; i < K; ++i) at[(2 * i + h) * kSlots] = l[i];
+    return true;
+  }
+
+  // Insert the keys of the tile's sums >= 0 on columns below hi; true iff
+  // one went in.
+  __device__ __forceinline__ bool tile(const int (&d)[64],
+                                       const int (&dbase)[2], int col0,
+                                       int hi) {
+    int all[2];
+    and_rows(all, d);
+    if ((all[0] & all[1]) < 0) return false;
+    bool put = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (all[h] < 0) continue;
+      const unsigned m = row_candidates(d, h, col0, hi);
+      uint32_t w[8];
+      row_bytes(w, d, h);
+      each_candidate(m, w, dbase[h], col0,
+                     [&](int k) { put |= insert_key(h, k); });
+    }
+    return put;
+  }
+
+  // The distances of the lane's keys i of both rows, capped at L + 1, in
+  // bytes 0 and 1.
+  __device__ __forceinline__ unsigned dists(int i, int length) const {
+    return static_cast<unsigned>(min(get(0, i) >> kIdxBits, length + 1)) |
+           static_cast<unsigned>(min(get(1, i) >> kIdxBits, length + 1))
+               << 8;
+  }
+
+  // The biases of the lane's rows: the quad's gate less L + 1, both rows'
+  // distances riding in two bytes of a word through the shuffles.  Every
+  // lane of the warp calls it.
+  __device__ __forceinline__ void gate(int length, int (&bias)[2]) const {
+    constexpr unsigned kAll = 0xffffffffu;
+    // one sub-list's K keys
+    unsigned g = dists(K - 1, length);
+    g = __vminu4(g, __shfl_xor_sync(kAll, g, 1));
+    g = __vminu4(g, __shfl_xor_sync(kAll, g, 2));
+    if constexpr (K >= 2) {
+      // two sub-lists' K/2 keys each: the second least K/2-th distance
+      const unsigned a = dists(K / 2 - 1, length);
+      const unsigned b = __shfl_xor_sync(kAll, a, 1);
+      const unsigned lo = __vminu4(a, b), hi = __vmaxu4(a, b);
+      const unsigned lo2 = __shfl_xor_sync(kAll, lo, 2);
+      const unsigned hi2 = __shfl_xor_sync(kAll, hi, 2);
+      g = __vminu4(g, __vminu4(__vmaxu4(lo, lo2), __vminu4(hi, hi2)));
+    }
+    if constexpr (K >= 4) {
+      // four sub-lists' K/4 keys each: the largest K/4-th distance
+      unsigned a = dists(K / 4 - 1, length);
+      a = __vmaxu4(a, __shfl_xor_sync(kAll, a, 1));
+      a = __vmaxu4(a, __shfl_xor_sync(kAll, a, 2));
+      g = __vminu4(g, a);
+    }
+    bias[0] = static_cast<int>(g & 0xffu) - length - 1;
+    bias[1] = static_cast<int>(g >> 8) - length - 1;
+  }
+
+  // The quad's merge of its sub-lists of each row into the row's K
+  // smallest keys (a butterfly of two steps, after which every lane of the
+  // quad holds them), written to out[h] unless it is null, each lane
+  // writing the keys i with i % 4 == t.  Every lane of the warp calls it.
+  __device__ __forceinline__ void write(int* const (&out)[2]) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int key[K];
+      read(h, key);
+#pragma unroll
+      for (int m = 1; m <= 2; m <<= 1) {
+        int other[K];
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+          other[i] = __shfl_xor_sync(0xffffffffu, key[i], m);
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+          if (other[i] < key[K - 1]) insert<K>(key, other[i]);
+      }
+      if (out[h])
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+          if ((i & 3) == t) out[h][i] = key[i];
+    }
+  }
+};
+
+// The top-k lists of a wgmma block for K whose sub-lists would not fit in
+// shared memory beside the ring: one ascending list of K keys a row in
+// shared memory (rows K + 1 ints apart, so that the 8 rows a warp's lanes
+// of one t touch fall in different banks), shared by the row's quad, whose
+// four lanes insert in turn.  The gate is the list's K-th distance, exact.
+template <int K>
+struct RowLists {
+  static constexpr int kStride = K + 1;
+  // shared ints a block of rows rows needs
+  static constexpr int ints(int rows) { return rows * kStride; }
+
+  int* list[2];
+
+  // The lists of the lane's rows row and row + 8 of lists, the quad's
+  // lanes filling them with kInfKey (slot is QuadLists').  Every lane of
+  // the warp calls it.
+  __device__ __forceinline__ RowLists(int* lists, int row, int)
+      : list{lists + row * kStride, lists + (row + 8) * kStride} {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      for (int i = t; i < K; i += 4) list[h][i] = kInfKey;
+    __syncwarp();
+  }
+
+  // Insert key into the ascending list l, dropping its largest.
+  __device__ __forceinline__ static void insert_at(int* l, int key) {
+    int i = K - 1;
+#pragma unroll 1
+    for (; i > 0; --i) {
+      const int prev = l[i - 1];
+      if (prev < key) break;
+      l[i] = prev;
+    }
+    l[i] = key;
+  }
+
+  // Insert the keys of the tile's sums >= 0 on columns below hi, the
+  // quad's lanes in turn; true iff one went in.  Every lane of the warp
+  // calls it.
+  __device__ __forceinline__ bool tile(const int (&d)[64],
+                                       const int (&dbase)[2], int col0,
+                                       int hi) {
+    int all[2];
+    and_rows(all, d);
+    if (!__any_sync(0xffffffffu, (all[0] & all[1]) >= 0)) return false;
+    unsigned m[2];
+    uint32_t w[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = all[h] < 0 ? 0u : row_candidates(d, h, col0, hi);
+      row_bytes(w[h], d, h);
+    }
+    const int t = threadIdx.x & 3;
+    bool put = false;
+#pragma unroll 1
+    for (int turn = 0; turn < 4; ++turn) {
+      if (turn == t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          each_candidate(m[h], w[h], dbase[h], col0, [&](int k) {
+            if (k < list[h][K - 1]) {
+              insert_at(list[h], k);
+              put = true;
+            }
+          });
+      __syncwarp();
+    }
+    return put;
+  }
+
+  // The biases of the lane's rows: the list's K-th distance, capped at
+  // L + 1, less L + 1.
+  __device__ __forceinline__ void gate(int length, int (&bias)[2]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bias[h] = min(list[h][K - 1] >> kIdxBits, length + 1) - length - 1;
+  }
+
+  // Each row's list written to out[h] unless it is null, each lane of the
+  // quad writing the keys i with i % 4 == t.
+  __device__ __forceinline__ void write(int* const (&out)[2]) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (out[h])
+        for (int i = t; i < K; i += 4) out[h][i] = list[h][i];
+  }
+};
 
 // Readies kernel, built on ring_roles with these register counts, for a
 // launch with smem_bytes of dynamic shared memory on the current device.

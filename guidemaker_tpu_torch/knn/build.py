@@ -26,8 +26,8 @@ CSRC_DIR = os.path.join(ROOT_DIR, "csrc")
 SOURCES = ("hamming_count.cu", "hamming_topk.cu", "packed_count.cu",
            "packed_topk.cu", "feature_count.cu", "leven_topk.cu",
            "mma_rate.cu")
-HEADERS = ("hamming_common.cuh", "mma_common.cuh", "packed_common.cuh",
-           "topk_common.cuh", "wgmma_common.cuh")
+HEADERS = ("hamming_common.cuh", "mma_common.cuh", "onehot_wgmma.cuh",
+           "packed_common.cuh", "topk_common.cuh", "wgmma_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -98,32 +98,6 @@ def _edge_editdists(length):
     return sorted({e for e in (0, 1, 2, 3, length) if e <= length})
 
 
-def _onehot_rows(codes, k_bytes):
-    """(n, k_bytes) int32 one-hot rows: base i is the little-endian word
-    ``valid << 8 * code`` at bytes 4i..4i+3; N and bases past k_bytes / 4
-    are zeros."""
-    rows = np.zeros((codes.shape[0], k_bytes), np.int32)
-    for i in range(min(codes.shape[1], k_bytes // 4)):
-        valid = codes[:, i] < 4
-        rows[np.flatnonzero(valid), 4 * i + codes[valid, i]] = 1
-    return rows
-
-
-def _block_steps(block):
-    """k32 steps of a block of queries: enough for its last valid base."""
-    valid = np.flatnonzero((block < 4).any(0))
-    return -(-(valid[-1] + 1) // 8) if valid.size else 0
-
-
-def _db_tile(db, t0, hi, steps):
-    """One-hot rows of the 128-row database tile at t0; rows at or past hi
-    decode to zeros."""
-    tile = np.full((128, db.shape[1]), dna.INVALID, np.uint8)
-    part = db[t0:min(t0 + 128, hi)]
-    tile[:part.shape[0]] = part
-    return _onehot_rows(tile, 32 * steps)
-
-
 #: the count kernel's block: 256 queries, one m64 tile of 64 queries to
 #: each of its four consumer warpgroups; database tiles of 128 rows
 COUNT_BLOCK, COUNT_M_TILE, COUNT_TILE = 256, 64, 128
@@ -302,49 +276,131 @@ def test_count_model_padding_rows_need_the_bias_lane():
 TOPK_EDGE_KS = [1, 2, 3, 5, 20, 128]
 
 
-def _topk_model(q, db, length, k, n_splits):
+#: the wgmma top-k's sub-lists (in registers or shared memory) serve kcap
+#: up to this; larger kcaps keep one list a row in shared memory
+TOPK_QUAD_KCAP = 32
+
+
+def _lane_of_column(cols):
+    """The lane t of a quad whose accumulators hold a tile column: lane
+    4g + t holds columns 8j + 2t + c."""
+    return (cols >> 1) & 3
+
+
+def _quad_gate(dist, kcap):
+    """The gate of each row from its quad's four sub-lists, given their
+    distances (rows, 4, kcap) capped at L + 1: the least of one sub-list's
+    K-th distance, the second least K/2-th (two sub-lists with K/2 keys
+    each) and the largest K/4-th (four with K/4 each); each leaves K keys
+    of earlier tiles at a distance <= the gate."""
+    gate = dist[:, :, kcap - 1].min(1)
+    if kcap >= 2:
+        gate = np.minimum(gate, np.sort(dist[:, :, kcap // 2 - 1], 1)[:, 1])
+    if kcap >= 4:
+        gate = np.minimum(gate, dist[:, :, kcap // 4 - 1].max(1))
+    return gate
+
+
+def _topk_model(q, db, length, k, n_splits, drop_padding=True, trace=None):
     """csrc/hamming_topk.cu's arithmetic in numpy: per block of 256 queries
-    with its k32 steps (the 1-step product of zeros for an all-N block),
-    database splits of whole 128-row tiles, tiles zero-padded at the ragged
-    edge, batches of 32 columns whose sums start at each row's bias
-    dK - L - 1 (dK: the distance of the row's K-th key, L + 1 while its
-    list is not full) and are staged as bytes, a warp's gate (some sum of
-    its 32 rows >= 0), each row's scan of its sums >= 0 on columns below
-    the split's end into its sorted list of kcap keys, and the merge of
-    the splits' lists.  Returns (nq, min(k, nd, 128)) int64 keys."""
+    with nb bases (at least 1: an all-N block runs the 1-step product of
+    zeros), the one-hot rows of the wgmma count (:func:`_wgmma_rows`, K =
+    32 KS bytes); database splits of whole 128-row tiles, the rows past a
+    split's end padding rows; per m64 tile of queries and database tile an
+    int32 product whose sums start at each row's bias b = dK - L - 1, carried
+    in the bias lane (K byte 32 KS - 13: b in the query row, 1 in every
+    database row, padding rows included) or, when the bases fill K, added to
+    the sums; the pairs with a sum >= 0 on a column below the split's end
+    (unless ``drop_padding`` is false) as keys ((L + b - sum) << 24) | col.
+    For kcap <= 32 each lane t of a quad keeps each row's sub-list of kcap
+    keys over its columns 8j + 2t + c, dK is :func:`_quad_gate`, and the
+    quad merges its four sub-lists at the end of the split; for larger
+    kcaps each row keeps one list and dK is its K-th distance.  Then the
+    merge of the splits' lists.  ``trace`` (a dict), if given, collects
+    "paths" (the set of "bias" and "init" blocks), "padding" (padding
+    columns whose sum passed) and "gates" (for each tile of the first
+    block's first split, the kcap-th distance of each sub-list of query 0
+    and its gate) and "lists" (the splits' lists, (nq, n_splits, kcap)).
+    Returns (nq, min(k, nd, 128)) int64 keys."""
     nq, nd = q.shape[0], db.shape[0]
     k_eff = min(k, nd, MAX_K)
     kcap = 1 << (k_eff - 1).bit_length()
-    tiles = -(-nd // 128)
-    per_split = -(-tiles // n_splits) * 128
+    quad = kcap <= TOPK_QUAD_KCAP
+    tiles = -(-nd // COUNT_TILE)
+    per_split = -(-tiles // n_splits) * COUNT_TILE
+    lane_t = _lane_of_column(np.arange(COUNT_TILE))
+    trace = {} if trace is None else trace
+    trace.update(paths=set(), padding=0, gates=[])
     lists = np.full((nq, n_splits, kcap), INF_KEY, np.int64)
-    for b0 in range(0, nq, 256):
-        block = q[b0:b0 + 256]
-        steps = max(1, _block_steps(block))
-        a = _onehot_rows(block, 32 * steps)
+    for b0 in range(0, nq, COUNT_BLOCK):
+        block = q[b0:b0 + COUNT_BLOCK]
+        rows = block.shape[0]
+        nb = max(1, _block_bases(block))
+        k_bytes = 32 * -(-nb // 8)
+        lane = k_bytes - 13
+        bias_lane = nb % 8 != 0
+        trace["paths"].add("bias" if bias_lane else "init")
+        a = _wgmma_rows(block, k_bytes)
+        if bias_lane:
+            assert not a[:, lane].any()
         for split in range(n_splits):
             lo, hi = split * per_split, min(nd, (split + 1) * per_split)
-            best = np.full((block.shape[0], kcap), INF_KEY, np.int64)
-            for t0 in range(lo, hi, 128):
-                b = _db_tile(db, t0, hi, steps)
-                for n0 in range(0, min(128, hi - t0), 32):
-                    bias = np.minimum(best[:, -1] >> 24, length + 1) \
-                        - length - 1
-                    acc = a @ b[n0:n0 + 32].T + bias[:, None]
-                    assert -128 <= acc.min() and acc.max() <= 127
-                    col = t0 + n0 + np.arange(32)
-                    for w0 in range(0, block.shape[0], 32):
-                        w = slice(w0, w0 + 32)
-                        if not (acc[w] >= 0).any():
-                            continue
-                        keys = np.where(
-                            (acc[w] >= 0) & (col < hi),
-                            ((length + bias[w, None] - acc[w]) << 24) | col,
-                            INF_KEY)
-                        best[w] = np.sort(np.concatenate([best[w], keys], 1),
-                                          1)[:, :kcap]
-            lists[b0:b0 + 256, split] = best
+            sub = np.full((rows, 4 if quad else 1, kcap), INF_KEY, np.int64)
+            bias = np.zeros(rows, np.int64)
+            for t0 in range(lo, hi, COUNT_TILE):
+                tile = np.full((COUNT_TILE, db.shape[1]), dna.INVALID,
+                               np.uint8)
+                real = min(COUNT_TILE, hi - t0)
+                tile[:real] = db[t0:t0 + real]
+                b = _wgmma_rows(tile, k_bytes)
+                if bias_lane:
+                    b[:, lane] = 1
+                    a[:, lane] = bias
+                acc = np.concatenate([a[m0:m0 + COUNT_M_TILE] @ b.T
+                                      for m0 in range(0, rows, COUNT_M_TILE)])
+                if not bias_lane:
+                    acc += bias[:, None]
+                assert -128 <= acc.min() and acc.max() <= 127
+                col = t0 + np.arange(COUNT_TILE)
+                passed = acc >= 0
+                if split == 0 and b0 == 0:
+                    trace["padding"] += int(passed[:, real:].sum())
+                if drop_padding:
+                    passed &= col < hi
+                keys = np.where(passed, ((length + bias[:, None] - acc)
+                                         << 24) | col, INF_KEY)
+                for t in range(sub.shape[1]):
+                    own = keys[:, lane_t == t] if quad else keys
+                    sub[:, t] = np.sort(np.concatenate([sub[:, t], own], 1),
+                                        1)[:, :kcap]
+                dist = np.minimum(sub >> 24, length + 1)
+                gate = (_quad_gate(dist, kcap) if quad
+                        else dist[:, 0, kcap - 1])
+                bias = gate - length - 1
+                if split == 0 and b0 == 0:
+                    trace["gates"].append((dist[0, :, kcap - 1], gate[0]))
+            lists[b0:b0 + rows, split] = np.sort(sub.reshape(rows, -1),
+                                                 1)[:, :kcap]
+    trace["lists"] = lists
     return np.sort(lists.reshape(nq, -1), 1)[:, :k_eff]
+
+
+def _a_fragments(rows, steps):
+    """The wgmma A fragments of an m64 tile of one-hot rows (64, 32 steps)
+    as the count and top-k kernels load them: [warp w, lane 4g + t, step s,
+    register r, byte] holds, in registers 0 and 1, rows 16w + g and 16w + g
+    + 8 at K bytes 32s + 4t .. 32s + 4t + 3, in 2 and 3 the same rows at
+    K bytes 32s + 16 + 4t .. 32s + 16 + 4t + 3."""
+    frag = np.zeros((4, 32, steps, 4, 4), rows.dtype)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for s in range(steps):
+                for r in range(4):
+                    row = 16 * w + g + 8 * (r & 1)
+                    k0 = 32 * s + 16 * (r >> 1) + 4 * t
+                    frag[w, lane, s, r] = rows[row, k0:k0 + 4]
+    return frag
 
 
 def _keys_to_pairs(keys, k):
@@ -396,6 +452,105 @@ def test_topk_kernel_model_small_database(nd, k):
     rng = np.random.default_rng(nd + k)
     q, db = _codes(rng, 70, nd, 20)
     _check_topk_model(q, db, 20, (k,))
+
+
+def _variants(guide, positions):
+    """Copies of a guide, each with one more base changed at ``positions``
+    (copy i at distance i + 1)."""
+    out = np.repeat(guide[None], len(positions), 0)
+    for i, p in enumerate(positions):
+        out[i:, p] ^= 1
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 20])
+def test_topk_kernel_model_ties_across_quad_and_tiles(k):
+    """Equal-distance copies of a guide on every lane of a quad, on both
+    columns of one lane, and in three tiles: the lists keep the lowest
+    columns, as the plain top-k and the JAX kernel do."""
+    rng = np.random.default_rng(40 + k)
+    q, db = _codes(rng, 70, 400, 20)
+    guide = db[4].copy()
+    copies = [4, 5, 6, 8, 10, 130, 133, 260]     # distance 0
+    near = [3, 129, 131, 263]                    # distance 1
+    db[copies] = guide
+    db[near] = guide
+    db[near, 0] ^= 1
+    q[0], q[1] = guide, db[3]
+    assert set(_lane_of_column(np.array(copies[:5]))) == {0, 1, 2, 3}
+    assert {c // 128 for c in copies} == {0, 1, 2}
+    _check_topk_model(q, db, 20, (k,))
+    got = _topk_model(q, db, 20, k, 1)
+    d, i = (t.numpy() for t in unpack_keys(torch.from_numpy(
+        got[:2].astype(np.int32))))
+    order = sorted(copies) + sorted(near)
+    np.testing.assert_array_equal(i[0, :12], order[:k])
+    np.testing.assert_array_equal(d[0, :12], ([0] * 8 + [1] * 4)[:k])
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_topk_kernel_model_uneven_sub_lists(k):
+    """A query whose close neighbors all lie on one lane's columns of the
+    first tile: that lane's sub-list fills with them while the other three
+    hold far guides, and the gate, taken over the quad, is that one lane's
+    K-th distance."""
+    rng = np.random.default_rng(60 + k)
+    q, db = _codes(rng, 70, 700, 20)
+    db = np.minimum(db, 3)
+    q[0] = rng.integers(0, 4, 20)
+    cols = np.flatnonzero(_lane_of_column(np.arange(128)) == 1)[:k]
+    db[cols] = _variants(q[0], range(k))
+    trace = {}
+    _topk_model(q, db, 20, k, 1, trace=trace)
+    kth, gate = trace["gates"][0]
+    assert gate == kth[1] == k
+    assert (np.delete(kth, 1) > gate).all()
+    _check_topk_model(q, db, 20, (k,))
+
+
+@pytest.mark.parametrize("nd,k", [(3, 5), (6, 8), (20, 32), (100, 128)])
+def test_topk_kernel_model_padding_columns_pass_a_zero_bias(nd, k):
+    """While a row's lists are not full its bias is 0, and a padding
+    column past the split (all zeros but the bias lane's 1) sums to 0 and
+    passes the gate, in the sub-lists (kcap 4, 8, 32) and the row lists
+    (kcap 128): only the index drops it, and without the drop the splits' lists
+    hold keys of columns that are no guide."""
+    rng = np.random.default_rng(nd)
+    q, db = _codes(rng, 70, nd, 20)
+    trace = {}
+    _topk_model(q, db, 20, k, 1, trace=trace)
+    assert trace["padding"] > 0
+    kept = trace["lists"][trace["lists"] != INF_KEY]
+    assert ((kept & 0xffffff) < nd).all()
+    _topk_model(q, db, 20, k, 1, drop_padding=False, trace=trace)
+    bad = trace["lists"][trace["lists"] != INF_KEY]
+    assert ((bad & 0xffffff) >= nd).any()
+    _check_topk_model(q, db, 20, (k,))
+
+
+@pytest.mark.parametrize("length", [5, 13, 21, 29])
+def test_topk_kernel_bias_byte_in_the_a_fragment(length):
+    """The bias lane, K byte 32 KS - 13 of a query row, lies in the A
+    fragments of lane t 0 of each quad, register 2 (row g) or 3 (row g + 8)
+    of the last k32 step, byte 3, and nowhere else; on real rows that byte
+    is 0 before the bias is written (the block's base 8 KS - 1 is
+    invalid).  L 5, 13, 21, 29 give KS 1 to 4, each with a spare lane."""
+    steps = -(-length // 8)
+    rng = np.random.default_rng(length)
+    q, db = _codes(rng, 70, 300, length)
+    rows = _wgmma_rows(q[:64], 32 * steps)
+    real = _a_fragments(rows, steps)
+    assert not real[:, 0::4, steps - 1, 2:, 3].any()
+    marks = np.zeros_like(rows)
+    marks[:, 32 * steps - 13] = -1 - np.arange(64)
+    frag = _a_fragments(marks, steps)
+    w, lane, s, r, byte = np.nonzero(frag)
+    assert len(w) == 64
+    assert (lane % 4 == 0).all() and (s == steps - 1).all()
+    assert (byte == 3).all() and set(r) == {2, 3}
+    row = 16 * w + lane // 4 + 8 * (r - 2)
+    np.testing.assert_array_equal(frag[w, lane, s, r, byte], -1 - row)
+    _check_topk_model(q, db, length, (1, 5))
 
 
 def test_pack_codes_full_width_and_n_rule():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the two count kernels of one tree of the port on the card: K4,
-the packed-pair count, and K1, the 2-bit count, on the same guides.
+"""Time the count kernels and the 2-bit top-k of one tree of the port on
+the card: K4, the packed-pair count, and K1, the 2-bit count, on the same
+guides; and K2, the 2-bit top-k.
 
 Usage, on a machine with one H100:
 
@@ -14,9 +15,13 @@ tree's package only.  Guides are 1,159,224 random N-free 20-mers (the
 size of the P. aeruginosa index) with 1,000 duplicated, made from a fixed
 seed.  It checks that K4 equals K1 all against all at editdist 2 and at
 the control triage's shape (2^19 random candidates against the guides,
-editdist 7 and 2), then prints one JSON line: each kernel's mean ms over
-3 calls at each shape, by CUDA events, with the card's name.  Without a
-card it exits 1 and prints nothing.
+editdist 7 and 2), and that K2 equals the plain top-k at the design run's
+phase-2 shape (the first 101,513 guides against all, k 1, 4, 8, 16 and
+32, each a kcap) and at 4096 x 200,000 (k 5), and times K1 on the
+phase-2 shape (editdist 2) beside it; then prints one JSON line:
+each kernel's mean ms over 3 calls at each shape (10 at the small one),
+by CUDA events, with the card's name.  Without a card it exits 1 and
+prints nothing.
 """
 import json
 import os
@@ -25,10 +30,16 @@ import time
 
 N_GUIDES = 1_159_224
 LENGTH = 20
+#: queries of the design run's phase-2 lists (P. aeruginosa, NGG/5prime/20)
+N_PHASE2 = 101_513
+#: the top-k's k at the phase-2 shape: kcap 1, 4, 8 (the main path's),
+#: 16 and 32
+PHASE2_KS = (1, 4, 8, 16, 32)
 
 
 def cuda_ms(fn, reps=3):
-    """Mean ms of ``fn()`` on the card, after one call to warm up."""
+    """Mean ms of ``reps`` calls of ``fn()`` on the card, after one call to
+    warm up."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -51,7 +62,8 @@ def main(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     from guidemaker_tpu_torch.knn import build, stream
     from guidemaker_tpu_torch.knn import packed as pk
-    from guidemaker_tpu_torch.knn.hamming import pack_codes
+    from guidemaker_tpu_torch.knn.hamming import (hamming_topk_plain,
+                                                  pack_codes)
     t0 = time.time()
     build.library()
     res = {"root": root, "device": torch.cuda.get_device_name(0),
@@ -76,6 +88,19 @@ def main(root: str) -> int:
                 raise AssertionError(f"K4 != K1 at {shape}, editdist {e}")
             res[f"k4_ms_{shape}_{e}"] = cuda_ms(k4)
             res[f"k1_ms_{shape}_{e}"] = cuda_ms(k1)
+    # K1 on the phase-2 grid: the block's cost when no pair can enter a list
+    res["k1_ms_phase2_2"] = cuda_ms(
+        lambda: stream.hamming_count(db2[:N_PHASE2], db2, LENGTH, 2))
+    for shape, q, rows, ks, reps in (
+            ("phase2", db2[:N_PHASE2], db2, PHASE2_KS, 3),
+            ("4096x200000", db2[:4096], db2[:200_000], (5,), 10)):
+        want = hamming_topk_plain(q, rows, LENGTH, max(ks))
+        for k in ks:
+            def k2(q=q, rows=rows, k=k):
+                return stream.hamming_topk(q, rows, LENGTH, k)
+            if not torch.equal(k2(), want[:, :k]):
+                raise AssertionError(f"K2 != plain at {shape}, k {k}")
+            res[f"k2_ms_{shape}_{k}"] = cuda_ms(k2, reps)
     print(json.dumps(res), flush=True)
     return 0
 
