@@ -13,9 +13,9 @@ Phases, one line each; any failure exits non-zero:
    shared memory for every kernel (each kcap of the top-k) and its wgmma
    notes, and by ``cuobjdump -sass`` the tensor-core instructions: IGMMA
    (int8 wgmma) in the 2-bit and the packed count and in every kcap of
-   the 2-bit top-k, which may hold no IMMA and whose products ptxas may
-   not serialise, IMMA (int8 mma.sync) in every kcap of the packed top-k,
-   BMMA (1-bit) in the 3-gram count at each of its 8 k256 step counts,
+   both top-k kernels, which may hold no IMMA and whose products ptxas may
+   not serialise, BMMA (1-bit) in the 3-gram count at each of its 8 k256
+   step counts,
    none with POPC or IDP4A (dp4a), and none may spill on the main path
    (the counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); every
    wgmma kernel's LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP
@@ -37,10 +37,9 @@ Phases, one line each; any failure exits non-zero:
    nd 200,003; a query block ending in N and an all-N block; editdist 0-3
    and L; k 1, 2, 3, 5, 20 and 128);
    3d, the packed count and top-k kernels at their tiling's edges (L 1,
-   10, 11, 16, 20 and 21; for the count nq 1, 63, 64, 65, 255, 256, 257
-   and 4095 (m64 tiles, 256-query blocks), for the top-k nq 1, 15 and
-   4095; nd 200,002 and 200,003; editdist 0-3, the first with
-   3L - 4 editdist + 1 <= 0, and L; k 1, 2, 3, 5, 20 and 128);
+   10, 11, 16, 20 and 21; nq 1, 63, 64, 65, 255, 256, 257 and 4095 (m64
+   tiles, 256-query blocks); nd 200,002 and 200,003; editdist 0-3, the
+   first with 3L - 4 editdist + 1 <= 0, and L; k 1, 2, 3, 5, 20 and 128);
 4. the C. ruddii parity configuration (tests/test_parity_e2e.py) on the
    card, byte for byte against tests/test_data/golden_pretty_cruddii.csv.gz;
 5. P. aeruginosa retention (NGG/5prime/20, all unique guides against all,
@@ -65,7 +64,8 @@ Phases, one line each; any failure exits non-zero:
    same control invariants, both packed kernels launched and neither 2-bit
    kernel; its controls join and wall; then the packed top-k on the run's
    phase-2 queries against the plain packed top-k, and its time at kcap
-   1, 2, 4, 8, 16 and 32, each with its bound, as in phase 6;
+   1, 2, 4, 8, 16 and 32, each with its bound and beside its mma.sync
+   design's time, as in phase 6;
 8. P. aeruginosa Levenshtein retention (NGG/5prime/20, all unique guides
    against all): at dist 2 the mask equals the Hamming mask (1,139,266
    retained); at dist 3 it is a subset of the Hamming dist-3 mask and, on
@@ -223,16 +223,15 @@ COUNT_EDGE_ND = (129, 200_003)
 #: the top-k's list edges (phase 3b): kcap 1, 2, 4, 8, 32 and 128
 EDGE_KS = (1, 2, 3, 5, 20, 128)
 #: the packed kernels' tiling edges (phase 3d): guide lengths at their k32
-#: step edges (the top-k's 3L straddles a step everywhere, 3L = 63 at L 21;
-#: the count's K = 32 ceil((3L + 1) / 32) steps from 1 to 2 at L 10/11,
-#: and 3L % 4, the shift of its odd B rows, takes each value), and
-#: databases ragged against their tiles (128 pair rows for the top-k, 64
-#: for the count), even and odd
+#: step edges (K = 32 ceil((3L + 1) / 32) steps from 1 to 2 at L 10/11,
+#: 3L % 4, the shift of the odd B rows, takes each value, and lane 3L is
+#: the top-k's bias lane K - 1 at L 21), and databases ragged against
+#: their 64-row tiles of pair rows, even and odd
 PACKED_EDGE_LENGTHS = (1, 10, 11, 16, 20, 21)
 PACKED_EDGE_ND = (200_002, 200_003)
-#: the packed count's query edges (phase 3d): its m64 tiles (63, 64, 65)
+#: the packed kernels' query edges (phase 3d): their m64 tiles (63, 64, 65)
 #: and 256-query blocks (255, 256, 257)
-PACKED_COUNT_EDGE_NQ = (1, 63, 64, 65, 255, 256, 257, 4095)
+PACKED_EDGE_NQ = (1, 63, 64, 65, 255, 256, 257, 4095)
 #: the 3-gram count's tiling edges (phase 3c): row widths G = L - 2 words
 #: at its k256 step edges (a step is 4 words; 1..8 steps)
 FEATURE_EDGE_WORDS = (1, 4, 5, 8, 17, 18, 25, 29, 30)
@@ -244,6 +243,12 @@ SWEEP_KCAPS = (1, 2, 4, 8, 16, 32)
 #: beside phase 6's sweep
 MMA_SYNC_KCAP_MS = {1: 34.383, 2: 34.113, 4: 34.481, 8: 35.026,
                     16: 51.295, 32: 60.306}
+#: the packed top-k's ms at each kcap of SWEEP_KCAPS on the phase-2 lists,
+#: as its mma.sync design took them before it moved to wgmma (PERF.md
+#: section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside phase 7's
+#: sweep
+PACKED_MMA_SYNC_KCAP_MS = {1: 33.430, 2: 27.690, 4: 28.326, 8: 29.663,
+                           16: 46.219, 32: 55.629}
 #: an H100 SXM's peaks (NVIDIA's data sheet, dense): int8 tensor-core
 #: operations, device-memory bytes, and INT32 operations (64 INT32 lanes a
 #: SM against the 128 float32 lanes of the 67 TFLOP/s float32 peak, in
@@ -536,11 +541,10 @@ def phase_packed_kernels(pcount, ptopk, dev):
 def phase_packed_edges(pcount, ptopk, dev):
     """The packed count and top-k kernels against their plain versions at
     their tiling's edges: k32 steps (PACKED_EDGE_LENGTHS), query tiles and
-    blocks (PACKED_COUNT_EDGE_NQ for the count, EDGE_NQ for the top-k),
-    databases ragged against their tiles with an odd slot left over or not
-    (PACKED_EDGE_ND), every editdist edge (0-3, the first with T + 1 <= 0,
-    where a padding slot passes the count's gate, and L) and every list
-    edge (EDGE_KS)."""
+    blocks (PACKED_EDGE_NQ), databases ragged against their tiles with an
+    odd slot left over or not (PACKED_EDGE_ND), every editdist edge (0-3,
+    the first with T + 1 <= 0, where a padding slot passes the count's
+    gate, and L) and every list edge (EDGE_KS)."""
     from guidemaker_tpu_torch.knn import packed as pk
     from guidemaker_tpu_torch.knn import stream
     rng = np.random.default_rng(98)
@@ -550,11 +554,11 @@ def phase_packed_edges(pcount, ptopk, dev):
         edits = sorted({e for e in (0, 1, 2, 3, first_neg, length)
                         if e <= length})
         for nd in PACKED_EDGE_ND:
-            qn, dbn = random_codes(rng, max(PACKED_COUNT_EDGE_NQ), nd,
+            qn, dbn = random_codes(rng, max(PACKED_EDGE_NQ), nd,
                                    length, with_n=False)
             q = pk.query_rows(torch.from_numpy(qn).to(dev))
             db = pk.db_rows(torch.from_numpy(dbn).to(dev))
-            for nq in PACKED_COUNT_EDGE_NQ:
+            for nq in PACKED_EDGE_NQ:
                 for e in edits:
                     pcount.compare(
                         stream.packed_count(q[:nq], db, nd, length, e),
@@ -562,7 +566,6 @@ def phase_packed_edges(pcount, ptopk, dev):
                         f"packed count L={length} nd={nd} nq={nq} "
                         f"editdist={e}")
                     n_count += 1
-            for nq in EDGE_NQ:
                 for k in EDGE_KS:
                     ptopk.compare(
                         stream.packed_topk(q[:nq], db, nd, length, k),
@@ -571,9 +574,8 @@ def phase_packed_edges(pcount, ptopk, dev):
                     n_topk += 1
     say(f"phase 3d packed count and top-k kernels vs plain at their tiling "
         f"edges: exact in {n_count} and {n_topk} comparisons, L "
-        f"{PACKED_EDGE_LENGTHS}, nq {PACKED_COUNT_EDGE_NQ} (count) and "
-        f"{EDGE_NQ} (top-k), nd {PACKED_EDGE_ND}, editdist "
-        f"0,1,2,3,ceil((3L+1)/4),L, k {EDGE_KS}")
+        f"{PACKED_EDGE_LENGTHS}, nq {PACKED_EDGE_NQ}, nd {PACKED_EDGE_ND}, "
+        f"editdist 0,1,2,3,ceil((3L+1)/4),L, k {EDGE_KS}")
 
 
 def leven_codes(rng, nq, nd, length):
@@ -1074,8 +1076,9 @@ def phase_design_packed(pcount, ptopk, dev, codes_out):
     ptopk.row["ms_by_kcap"] = {str(k): round(t, 3) for k, t, _ in sweep}
     say(f"phase 7 packed top-k by kcap on the {len(need)} phase-2 queries x "
         f"{n} guides: " + ", ".join(
-            f"kcap {k} {t:.3f} ms (bound {b:.3f} ms, share {b / t:.3f})"
-            for k, t, b in sweep))
+            f"kcap {k} {t:.3f} ms (mma.sync design "
+            f"{PACKED_MMA_SYNC_KCAP_MS[k]:.3f} ms; bound {b:.3f} ms, share "
+            f"{b / t:.3f})" for k, t, b in sweep))
     say(f"phase 7 P. aeruginosa design run (--controls 1000 --seed {SEED}, "
         f"GUIDEMAKER_TPU_PACKED=1) on {dev}: targets.csv.gz content == "
         f"phase 6's ({len(tables[1])} bytes), {wall:.2f} s wall, controls "
@@ -1852,23 +1855,28 @@ def feature_kernels(steps):
     return tuple(f"feature_count_kernel<{s}>" for s in steps)
 
 
-#: the kernels on wgmma (the 2-bit and packed counts, the 2-bit top-k at
+def lists_note(kcap):
+    """Where the top-k kernels keep their lists at ``kcap``."""
+    return ("sub-lists" if kcap <= 32 else "row lists") + " in shared memory"
+
+
+#: the kernels on wgmma (the 2-bit and packed counts, both top-k kernels at
 #: every kcap): IGMMA and no IMMA in their SASS, no serialisation note from
 #: ptxas, and each one's instantiations (phase 2 prints their logic,
 #: barrier and warpgroup counts)
 WGMMA_KERNELS = {
     "count_kernel": "k32 steps 1-4, bias lane or not",
     "packed_count_kernel": "L 1-21 producers, k32 steps 1-2",
-    **{fn: "k32 steps 1-4, bias lane or not, " + (
-        "sub-lists" if k <= 32 else "row lists") + " in shared memory"
-       for k, fn in zip(KCAPS, topk_kernels(KCAPS))}}
+    **{fn: "k32 steps 1-4, bias lane or not, " + lists_note(k)
+       for k, fn in zip(KCAPS, topk_kernels(KCAPS))},
+    **{fn: "L 1-21 producers in units, k32 steps 1-2, " + lists_note(k)
+       for k, fn in zip(KCAPS, topk_kernels(KCAPS, "packed_"))}}
 #: the tensor-core kernels whose SASS phase 2 reads, each with the opcode
 #: it must hold (every kcap a top-k kernel is built for, every step count
 #: of the 3-gram count: 1..8 for 1..30 words), and those that must not
 #: spill (the counts, the top-k kcaps the main path runs, and the 3-gram
 #: count at S <= 5, guides of <= 22 bases)
-TC_KERNELS = {**{fn: "IMMA" for fn in topk_kernels(KCAPS, "packed_")},
-              **{fn: "BMMA" for fn in feature_kernels(range(1, 9))},
+TC_KERNELS = {**{fn: "BMMA" for fn in feature_kernels(range(1, 9))},
               **{fn: "IGMMA" for fn in WGMMA_KERNELS}}
 NO_SPILL_KERNELS = (("count_kernel", "packed_count_kernel")
                     + topk_kernels((1, 2, 4, 8))

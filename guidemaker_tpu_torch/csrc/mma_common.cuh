@@ -1,13 +1,11 @@
 // Shared pieces of the mma.sync kernels on the tensor cores: the block
 // shape, the ldmatrix addressing of a shared-memory tile, the mma.sync
 // wrappers (s8 m16n8k32, b1 m16n8k256), one warp's product with 32 rows of
-// a tile, the count epilogue and a cp.async tile ring.  The packed-pair
-// top-k (packed_common.cuh) shares its block shape, tile height, ldmatrix
-// addressing, mma wrapper and cp.async tile ring; the 3-gram count
-// (feature_count.cu) all of these, with the 1-bit product, and the count
-// epilogue; the tensor-core rate probe (mma_rate.cu) the wrappers.  The
-// wgmma kernels (onehot_wgmma.cuh, packed_count.cu) take its block and tile
-// heights.
+// a tile, the count epilogue and a cp.async tile ring.  The 3-gram count
+// (feature_count.cu) shares all of these, with the 1-bit product; the
+// tensor-core rate probe (mma_rate.cu) the wrappers.  The wgmma kernels
+// (onehot_wgmma.cuh, packed_common.cuh) take its block and tile heights
+// and its cp.async.
 //
 // Block: 8 warps; each holds 2 m16 tiles (32 queries) as A fragments in
 // registers for the whole database loop.  Database tiles of 128 rows lie in

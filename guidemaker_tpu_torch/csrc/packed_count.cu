@@ -45,7 +45,8 @@
 //     otherwise; L is a template parameter, 1..21), sets the bias lane and
 //     stores the row in the K-major core-matrix layout of
 //     wgmma_common.cuh.  The 8-row groups of that layout do not match the
-//     rows' contiguous 128 bytes, so the rows pass through registers;
+//     rows' contiguous 128 bytes, so the rows pass through registers
+//     (packed_common.cuh produce_pairs, which the packed top-k shares);
 //   * product: per tile, K / 32 wgmma m64n128k32 s8 x s8 -> s32 (1 step
 //     at L <= 10, 2 at L 11..21) in one commit group, the consumers taking
 //     turns to issue;
@@ -66,149 +67,18 @@
 #include <stdint.h>
 
 #include "packed_common.cuh"
-#include "wgmma_common.cuh"
 
 namespace {
 
-using gm::kConsumers;
+using gm::kPairTile;
 using gm::kQPerBlock;
 using gm::kWarpgroup;
 
-// pair rows a tile: two B rows each, the 128 columns of one m64n128
-// product
-constexpr int kPairTile = 64;
-// k32 steps of the widest B row (L 11..21)
-constexpr int kMaxSteps = 2;
-constexpr int kStageBytes = 2 * kPairTile * 32 * kMaxSteps;
-// the pair rows as stored, staged by cp.async kRawStages - 1 tiles ahead
-// of the producer: kPairTile rows of 128 bytes a stage, after the ring
-constexpr int kRawStages = 4;
-constexpr int kRawBytes = kPairTile * 16 * gm::kPackedVecs;
-constexpr int kRawOffset = gm::ring_smem_bytes(kStageBytes);
-constexpr int kSmemBytes = kRawOffset + kRawStages * kRawBytes;
-// the producer warpgroup's named barrier (the consumers' turns take
-// 1..kConsumers)
-constexpr uint32_t kProducerBar = 1 + kConsumers;
+constexpr int kStageBytes = gm::kPairStageBytes;
 // registers a thread of the producer (a pair row's chunks) and of a
 // consumer warpgroup (64 accumulators, 4 or 8 fragment registers)
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 104;
-
-static_assert(2 * kPairTile == kWarpgroup, "one producer thread a B row");
-static_assert((kRawStages & (kRawStages - 1)) == 0 && kRawStages >= 2,
-              "a power-of-two staging ring");
-static_assert(kRawBytes % (16 * kWarpgroup) == 0, "whole copies a thread");
-static_assert(kRawOffset % 16 == 0, "16-byte copies");
-static_assert(kQPerBlock == kConsumers * 64, "one m64 tile a consumer");
-
-// k32 steps of a B row of L bases: lanes [0, 3L) and the bias lane 3L
-__host__ __device__ constexpr int b_steps(int length) {
-  return (3 * length + 1 + 31) / 32;
-}
-
-// the longest guide two of which fit a 128-lane row (6L <= 128)
-constexpr int kMaxLength = 16 * gm::kPackedVecs / 6;
-static_assert(b_steps(kMaxLength) <= kMaxSteps,
-              "the bias lane fits K for every L a row holds");
-
-// The producer warpgroup: thread p writes B row p of every tile of the
-// split's pair rows [lo, hi), half p & 1 of pair row t0 + p / 2 (rows at
-// or past hi are zeros and carry only the bias lane).  The tiles reach
-// shared memory by cp.async, kRawStages - 1 ahead, each thread copying 16
-// bytes in turn (chunk u of row r lands at 16 (u ^ (r & 7)), so that the
-// rows' reads below hit distinct banks); the producer's named barrier
-// tells every thread that the tile's copies are done and the stage
-// refilled next has been read.
-template <int L>
-__device__ __forceinline__ void produce(const int4* __restrict__ db, int lo,
-                                        int hi, uint8_t* ring, uint32_t full,
-                                        uint32_t empty) {
-  // lane 3L is byte kShift / 8 of word kJ of a row
-  constexpr int kJ = 3 * L / 4, kShift = 8 * (3 * L % 4);
-  constexpr int KS = b_steps(L);
-  // the even half needs the row's words 0..kJ; the odd half words
-  // kJ..2 kJ + 1, from chunk kJ / 4 on: its word j is bytes 3L + 4j ..
-  constexpr int kEvenChunks = kJ / 4 + 1;
-  constexpr int kOddChunks = (2 * kJ + 1) / 4 - kJ / 4 + 1;
-  constexpr int kChunks = kEvenChunks > kOddChunks ? kEvenChunks : kOddChunks;
-  static_assert(kJ / 4 + kChunks <= gm::kPackedVecs, "within the row");
-  static_assert(kJ < 8 * KS, "the bias lane within K");
-  constexpr uint32_t kBelow = (1u << kShift) - 1u;
-  constexpr int kCopies = kRawBytes / 16 / kWarpgroup;
-  const int p = threadIdx.x;
-  const bool odd = p & 1;
-  const int n_tiles = (hi - lo + kPairTile - 1) / kPairTile;
-  const int row_off = (p >> 3) * (256 * KS) + (p & 7) * 16;
-  const uint32_t bias = odd ? 1u : static_cast<uint32_t>(4 * L + 1);
-  const uint8_t* raw = ring + kRawOffset;
-  const uint32_t raw_addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  // the thread's row of a stage, and its first chunk
-  const int r = p >> 1, base = odd ? kJ / 4 : 0;
-  auto copy = [&](int t) {
-    const uint32_t dst = raw_addr + (t & (kRawStages - 1)) * kRawBytes;
-    const int t0 = lo + t * kPairTile;
-#pragma unroll
-    for (int k = 0; k < kCopies; ++k) {
-      const int c = p + kWarpgroup * k;
-      const int row = c / gm::kPackedVecs, u = c % gm::kPackedVecs;
-      const bool in = t0 + row < hi;
-      gm::cp_async<16>(
-          dst + 16 * (gm::kPackedVecs * row + (u ^ (row & 7))),
-          db + (in ? static_cast<size_t>(t0 + row) * gm::kPackedVecs + u : 0),
-          in ? 16 : 0);
-    }
-  };
-#pragma unroll
-  for (int t = 0; t < kRawStages - 1; ++t) {
-    if (t < n_tiles) copy(t);
-    gm::cp_async_commit();
-  }
-  uint32_t v[4 * kChunks];
-  gm::produce_tiles<kStageBytes>(
-      n_tiles, ring, full, empty,
-      [&](int t) {
-        gm::cp_async_wait<kRawStages - 2>();
-        gm::bar_sync<kWarpgroup>(kProducerBar);
-        if (t + kRawStages - 1 < n_tiles) copy(t + kRawStages - 1);
-        gm::cp_async_commit();
-        const uint4* row = reinterpret_cast<const uint4*>(
-            raw + (t & (kRawStages - 1)) * kRawBytes) +
-            gm::kPackedVecs * r;
-#pragma unroll
-        for (int i = 0; i < kChunks; ++i) {
-          const uint4 x = odd || i < kEvenChunks ? row[(base + i) ^ (r & 7)]
-                                                 : make_uint4(0, 0, 0, 0);
-          v[4 * i] = x.x;
-          v[4 * i + 1] = x.y;
-          v[4 * i + 2] = x.z;
-          v[4 * i + 3] = x.w;
-        }
-      },
-      [&](uint8_t* stage) {
-        uint32_t w[8 * KS];
-#pragma unroll
-        for (int j = 0; j < 8 * KS; ++j) {
-          if (j > kJ) {
-            w[j] = 0u;
-            continue;
-          }
-          uint32_t moved = v[kJ % 4 + j];
-          if constexpr (kShift != 0)
-            moved = __funnelshift_r(moved, v[kJ % 4 + j + 1], kShift);
-          w[j] = odd ? moved : v[j];
-          // the bias lane; the odd half's bytes past it are stored zeros,
-          // the even half's are the odd guide's lanes
-          if (j == kJ) w[j] = (w[j] & kBelow) | bias << kShift;
-        }
-        uint4* dst = reinterpret_cast<uint4*>(stage + row_off);
-#pragma unroll
-        for (int c = 0; c < 2 * KS; ++c)
-          dst[8 * c] = make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2],
-                                  w[4 * c + 3]);
-      });
-  gm::cp_async_wait<0>();
-}
 
 // Byte lanes o..o+3 of a query row's bias lane: -(thresh + 1) at lane
 // three_l.
@@ -282,11 +152,6 @@ __device__ __forceinline__ void consume(const uint32_t* __restrict__ q,
   gm::add_row_counts(cnt, out, nq, qw);
 }
 
-#define GM_PACKED_LENGTHS(CALL)                                             \
-  CALL(1) CALL(2) CALL(3) CALL(4) CALL(5) CALL(6) CALL(7) CALL(8) CALL(9) \
-  CALL(10) CALL(11) CALL(12) CALL(13) CALL(14) CALL(15) CALL(16) CALL(17) \
-  CALL(18) CALL(19) CALL(20) CALL(21)
-
 __global__ void __launch_bounds__(gm::kRingThreads, 1)
     packed_count_kernel(const uint32_t* __restrict__ q, int nq,
                         const int4* __restrict__ db, int nd, int length,
@@ -302,13 +167,10 @@ __global__ void __launch_bounds__(gm::kRingThreads, 1)
   gm::ring_roles<kStageBytes, kProducerRegs, kConsumerRegs>(
       smem,
       [&](uint8_t* ring, uint32_t full, uint32_t empty) {
-#define GM_PRODUCE(L) \
-  case L: produce<L>(db, lo, hi, ring, full, empty); break;
-        switch (length) { GM_PACKED_LENGTHS(GM_PRODUCE) default: break; }
-#undef GM_PRODUCE
+        gm::produce_pair_rows<false>(length, db, lo, hi, ring, full, empty);
       },
       [&](uint32_t ring, uint32_t full, uint32_t empty) {
-        if (b_steps(length) == 1)
+        if (gm::pair_b_steps(length) == 1)
           consume<1>(q, nq, 3 * length, thresh, lo, hi, ghi, out, ring, full,
                      empty);
         else
@@ -316,8 +178,6 @@ __global__ void __launch_bounds__(gm::kRingThreads, 1)
                      empty);
       });
 }
-
-#undef GM_PACKED_LENGTHS
 
 }  // namespace
 
@@ -334,13 +194,13 @@ extern "C" int gm_packed_count(const void* q, int nq, const void* db, int nd,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       gm::ring_kernel_ready<kProducerRegs, kConsumerRegs>(packed_count_kernel,
-                                                          kSmemBytes);
+                                                          gm::kPairSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // whole tiles a split, so that only the last split has a ragged tile
   const int tiles = (n2 + kPairTile - 1) / kPairTile;
   const int rows_per_split = (tiles + n_splits - 1) / n_splits * kPairTile;
   const dim3 grid((nq + kQPerBlock - 1) / kQPerBlock, n_splits);
-  packed_count_kernel<<<grid, gm::kRingThreads, kSmemBytes,
+  packed_count_kernel<<<grid, gm::kRingThreads, gm::kPairSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(q), nq, static_cast<const int4*>(db), nd,
       length, 3 * length - 4 * editdist, rows_per_split,

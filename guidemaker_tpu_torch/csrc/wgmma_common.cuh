@@ -4,9 +4,10 @@
 // m64n128k32 product with A in registers, its fences, commit and wait,
 // the mbarriers of a shared-memory ring, named barriers, and setmaxnreg,
 // all inline PTX for sm_90a (wgmma and setmaxnreg exist for no other
-// target); then the block the count kernels and the 2-bit top-k are built
-// on (ring_roles, produce_tiles, consume_tiles), its count epilogue
-// (count_tile) and its top-k epilogue (QuadLists, RowLists).
+// target); then the block the count kernels and the top-k kernels are
+// built on (ring_roles, produce_tiles, consume_tiles), its count epilogue
+// (count_tile) and its top-k epilogue (QuadLists, RowLists) for one-hot
+// and tetrahedral rows.
 //
 // The block: one producer warpgroup fills a ring of kStages shared-memory
 // tiles of 128 B rows, each signalled on its `full` mbarrier; kConsumers
@@ -377,18 +378,41 @@ __device__ __forceinline__ void add_row_counts(const int (&cnt)[2],
   }
 }
 
-// The top-k epilogue of the wgmma block (hamming_topk.cu), beside the
-// count's: each sum started at its row's bias b = dK - L - 1, dK the row's
-// gate distance (L + 1 while its lists are not full), so that the pair's
-// distance is L + b - sum and the sum is >= 0 iff that distance is below
-// dK.  Only pairs with a sum >= 0 on a column below the split's end hi
-// (padding columns past it carry the bias lane and can pass) are turned
-// into keys (dist << 24) | col, and the exact key compare decides each
-// insertion (topk_common.cuh insert), so the lists do not depend on the
-// gate or on the order of insertion.  Within a split the tiles come in
-// ascending column order, which makes a gate at dK itself safe: a pair at
-// distance dK loses to every key of distance <= dK that an earlier tile
-// gave.
+// The top-k epilogue of the wgmma block (hamming_topk.cu, packed_topk.cu),
+// beside the count's: each sum started at its row's bias b, set from dK,
+// the row's gate distance (L + 1 while its lists are not full), so that
+// the sum is >= 0 iff the pair's distance is below dK (Code, below, says
+// how for each row code).  Only pairs with a sum >= 0 on a column below the
+// split's end hi (padding columns past it carry the bias lane and can
+// pass) are turned into keys (dist << 24) | col, and the exact key compare
+// decides each insertion (topk_common.cuh insert), so the lists do not
+// depend on the gate or on the order of insertion.  Within a split the
+// tiles come in ascending column order, which makes a gate at dK itself
+// safe: a pair at distance dK loses to every key of distance <= dK that an
+// earlier tile gave.
+
+// The row codes of the top-k epilogue: bias(dk, L), the bias b of a row
+// whose gate distance is dk, and kShift: a pair's distance is
+// (dbase - sum) >> kShift, dbase being a number of the row that the kernel
+// passes.  One-hot rows (onehot_wgmma.cuh): a pair at distance h sums to
+// L - h + b, so b = dK - L - 1 and h = dbase - sum with dbase = L + b.
+struct OnehotCode {
+  static constexpr int kShift = 0;
+  __device__ __forceinline__ static int bias(int dk, int length) {
+    return dk - length - 1;
+  }
+};
+
+// Tetrahedral rows in units (packed_common.cuh): a pair at distance h sums
+// to 3L - 4h + b, so b = 4 dK - 3L - 1 makes the sum 4 (dK - h) - 1, and
+// h = (dbase - sum) >> 2 exactly with dbase = 3L + b = 4 dK - 1.  b lies
+// in [-3L - 1, L + 3].
+struct TetraCode {
+  static constexpr int kShift = 2;
+  __device__ __forceinline__ static int bias(int dk, int length) {
+    return 4 * dk - 3 * length - 1;
+  }
+};
 
 // The candidates of the lane's row h: bit i = 2j + c set iff its sum with
 // column col0 + 8j + 2t + c is >= 0 (one funnel shift a sum gathers the
@@ -418,8 +442,9 @@ __device__ __forceinline__ unsigned row_candidates(const int (&d)[64], int h,
   return ~neg & below;
 }
 
-// The lane's 32 sums of row h as bytes (they lie in [-33, 32]): byte
-// i % 4 of w[i / 4] holds sum i = 2j + c.
+// The lane's 32 sums of row h as bytes (they lie in [-33, 32] on one-hot
+// rows of L <= 32, in [-4L - 1, 4L + 3] on tetrahedral rows of L <= 21):
+// byte i % 4 of w[i / 4] holds sum i = 2j + c.
 __device__ __forceinline__ void row_bytes(uint32_t (&w)[8],
                                           const int (&d)[64], int h) {
 #pragma unroll
@@ -441,9 +466,10 @@ __device__ __forceinline__ int byte_sum(const uint32_t (&w)[8], int i) {
 }
 
 // put(key) for each candidate of row_candidates, in ascending column, its
-// key (dist << 24) | col with dist = dbase - sum.  A lane loops over its
-// own candidates only, so a warp takes as many turns as its busiest lane.
-template <typename Put>
+// key (dist << 24) | col with dist = (dbase - sum) >> Code::kShift.  A lane
+// loops over its own candidates only, so a warp takes as many turns as its
+// busiest lane.
+template <typename Code, typename Put>
 __device__ __forceinline__ void each_candidate(unsigned m,
                                                const uint32_t (&w)[8],
                                                int dbase, int col0,
@@ -452,7 +478,7 @@ __device__ __forceinline__ void each_candidate(unsigned m,
   while (m) {
     const int i = __ffs(m) - 1;
     m &= m - 1;
-    put(((dbase - byte_sum(w, i)) << kIdxBits) |
+    put((((dbase - byte_sum(w, i)) >> Code::kShift) << kIdxBits) |
         (lane_col + 8 * (i >> 1) + (i & 1)));
   }
 }
@@ -472,7 +498,9 @@ __device__ __forceinline__ void each_candidate(unsigned m,
 // K.  Such an x is the K-th distance of one sub-list, the larger K/2-th of
 // two, or the largest K/4-th of four; the gate is the least of these over
 // the quad (the K-th distance of the four sub-lists together at K <= 2).
-template <int K, int kSlots>
+// Code (OnehotCode, TetraCode) turns sums into distances and the gate into
+// biases.
+template <int K, int kSlots, typename Code = OnehotCode>
 struct QuadLists {
   int* at;
 
@@ -519,8 +547,8 @@ struct QuadLists {
       const unsigned m = row_candidates(d, h, col0, hi);
       uint32_t w[8];
       row_bytes(w, d, h);
-      each_candidate(m, w, dbase[h], col0,
-                     [&](int k) { put |= insert_key(h, k); });
+      each_candidate<Code>(m, w, dbase[h], col0,
+                           [&](int k) { put |= insert_key(h, k); });
     }
     return put;
   }
@@ -533,7 +561,7 @@ struct QuadLists {
                << 8;
   }
 
-  // The biases of the lane's rows: the quad's gate less L + 1, both rows'
+  // The biases of the lane's rows from the quad's gate, both rows'
   // distances riding in two bytes of a word through the shuffles.  Every
   // lane of the warp calls it.
   __device__ __forceinline__ void gate(int length, int (&bias)[2]) const {
@@ -558,8 +586,8 @@ struct QuadLists {
       a = __vmaxu4(a, __shfl_xor_sync(kAll, a, 2));
       g = __vminu4(g, a);
     }
-    bias[0] = static_cast<int>(g & 0xffu) - length - 1;
-    bias[1] = static_cast<int>(g >> 8) - length - 1;
+    bias[0] = Code::bias(static_cast<int>(g & 0xffu), length);
+    bias[1] = Code::bias(static_cast<int>(g >> 8), length);
   }
 
   // The quad's merge of its sub-lists of each row into the row's K
@@ -594,8 +622,9 @@ struct QuadLists {
 // shared memory beside the ring: one ascending list of K keys a row in
 // shared memory (rows K + 1 ints apart, so that the 8 rows a warp's lanes
 // of one t touch fall in different banks), shared by the row's quad, whose
-// four lanes insert in turn.  The gate is the list's K-th distance, exact.
-template <int K>
+// four lanes insert in turn.  The gate is the list's K-th distance, exact;
+// Code as QuadLists'.
+template <int K, typename Code = OnehotCode>
 struct RowLists {
   static constexpr int kStride = K + 1;
   // shared ints a block of rows rows needs
@@ -650,7 +679,7 @@ struct RowLists {
       if (turn == t)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          each_candidate(m[h], w[h], dbase[h], col0, [&](int k) {
+          each_candidate<Code>(m[h], w[h], dbase[h], col0, [&](int k) {
             if (k < list[h][K - 1]) {
               insert_at(list[h], k);
               put = true;
@@ -661,12 +690,13 @@ struct RowLists {
     return put;
   }
 
-  // The biases of the lane's rows: the list's K-th distance, capped at
-  // L + 1, less L + 1.
+  // The biases of the lane's rows from the list's K-th distance, capped at
+  // L + 1.
   __device__ __forceinline__ void gate(int length, int (&bias)[2]) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      bias[h] = min(list[h][K - 1] >> kIdxBits, length + 1) - length - 1;
+      bias[h] = Code::bias(min(list[h][K - 1] >> kIdxBits, length + 1),
+                           length);
   }
 
   // Each row's list written to out[h] unless it is null, each lane of the

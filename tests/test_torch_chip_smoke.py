@@ -65,9 +65,7 @@ def test_k4_is_held_to_wgmma_and_its_edges():
     odd B rows (3L % 4)."""
     assert cs.TC_KERNELS["packed_count_kernel"] == "IGMMA"
     assert {"count_kernel", "packed_count_kernel"} <= set(cs.WGMMA_KERNELS)
-    assert all(v == "IMMA" for k, v in cs.TC_KERNELS.items()
-               if k.startswith("packed_topk"))
-    assert {63, 64, 65, 255, 256, 257} <= set(cs.PACKED_COUNT_EDGE_NQ)
+    assert {63, 64, 65, 255, 256, 257} <= set(cs.PACKED_EDGE_NQ)
     assert {nd % 2 for nd in cs.PACKED_EDGE_ND} == {0, 1}
     assert all(-(-nd // 2) % 64 for nd in cs.PACKED_EDGE_ND)
     lengths = cs.PACKED_EDGE_LENGTHS
@@ -78,24 +76,44 @@ def test_k4_is_held_to_wgmma_and_its_edges():
 def test_k2_is_held_to_wgmma_at_every_kcap():
     """Every kcap the 2-bit top-k is built for (1..128) must compile to
     IGMMA, with no IMMA and no serialisation note (WGMMA_KERNELS); kcap
-    1-8, the main path's, must not spill; the packed top-k stays on IMMA;
-    phase 3b's top-k edges reach every list edge and phase 6 prints the
-    mma.sync design's time beside each kcap of its sweep."""
+    1-8, the main path's, must not spill; phase 3b's top-k edges reach
+    every list edge and phase 6 prints the mma.sync design's time beside
+    each kcap of its sweep."""
     topk = {f"topk_kernel<{k}>" for k in (1, 2, 4, 8, 16, 32, 64, 128)}
     assert topk <= set(cs.WGMMA_KERNELS)
     assert all(cs.TC_KERNELS[fn] == "IGMMA" for fn in topk)
     assert {f"topk_kernel<{k}>" for k in (1, 2, 4, 8)} <= set(
-        cs.NO_SPILL_KERNELS)
-    assert {f"packed_topk_kernel<{k}>" for k in (1, 2, 4, 8)} <= set(
         cs.NO_SPILL_KERNELS)
     assert {1 << (k - 1).bit_length() for k in cs.EDGE_KS} == {
         1, 2, 4, 8, 32, 128}
     assert set(cs.MMA_SYNC_KCAP_MS) == set(cs.SWEEP_KCAPS)
 
 
+def test_k5_is_held_to_wgmma_at_every_kcap():
+    """Every kcap the packed top-k is built for (1..128) must compile to
+    IGMMA, with no IMMA and no serialisation note (WGMMA_KERNELS), as its
+    own entry beside the 2-bit top-k's; kcap 1-8, the main path's, must
+    not spill; phase 3d holds it at the m64 tile and 256-query block edges
+    and at every list edge, and phase 7 prints the mma.sync design's time
+    beside each kcap of its sweep."""
+    kcaps = (1, 2, 4, 8, 16, 32, 64, 128)
+    packed = {f"packed_topk_kernel<{k}>" for k in kcaps}
+    assert packed <= set(cs.WGMMA_KERNELS)
+    assert all(cs.TC_KERNELS[fn] == "IGMMA" for fn in packed)
+    assert not any(v == "IMMA" for v in cs.TC_KERNELS.values())
+    assert all(cs.WGMMA_KERNELS[fn] != cs.WGMMA_KERNELS[fn[len("packed_"):]]
+               for fn in packed)
+    assert {f"packed_topk_kernel<{k}>" for k in (1, 2, 4, 8)} <= set(
+        cs.NO_SPILL_KERNELS)
+    assert {63, 64, 65, 255, 256, 257} <= set(cs.PACKED_EDGE_NQ)
+    assert {1 << (k - 1).bit_length() for k in cs.EDGE_KS} == {
+        1, 2, 4, 8, 32, 128}
+    assert set(cs.PACKED_MMA_SYNC_KCAP_MS) == set(cs.SWEEP_KCAPS)
+
+
 def test_count_probe_needs_a_card(capsys):
-    """tools/count_probe.py, which times K4 against K1 and the 2-bit
-    top-k on the card, exits 1 and prints no result without one."""
+    """tools/count_probe.py, which times K4 against K1 and both top-k
+    kernels on the card, exits 1 and prints no result without one."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(os.path.dirname(

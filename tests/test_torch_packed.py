@@ -5,11 +5,11 @@ package's packed kernels (Pallas in interpret mode on the CPU, as
 tests/test_packed.py runs them) and through the port's wrappers, which run
 the plain PyTorch versions on a CPU tensor.  Every result is an integer,
 so the tolerance is exact equality.  Numpy models of the CUDA kernels'
-arithmetic are held against both: here the split sums of the mma.sync
-product that the top-k runs (biases, gates, masks, splits), and in
-tests/test_torch_packed_wgmma.py the count's wgmma design.  The kernels
-themselves need the card (the ``cuda`` tests here and in
-tests/test_torch_knn.py).
+wgmma designs are held against both: the count's
+(tests/test_torch_packed_wgmma.py) and the top-k's
+(tests/test_torch_packed_topk_wgmma.py), here at the edges of the layout
+and of the lists.  The kernels themselves need the card (the ``cuda``
+tests here and in tests/test_torch_knn.py).
 """
 import numpy as np
 import pytest
@@ -21,7 +21,10 @@ from guidemaker_tpu_torch import dna
 from guidemaker_tpu_torch.knn import KnnIndex, stream
 from guidemaker_tpu_torch.knn import packed as pk
 from guidemaker_tpu_torch.knn.driver import use_packed
-from guidemaker_tpu_torch.knn.hamming import INF_KEY, MAX_DB, unpack_keys
+from guidemaker_tpu_torch.knn.hamming import MAX_DB, unpack_keys
+from test_torch_packed_topk_wgmma import _check_model as _check_topk_model
+from test_torch_packed_wgmma import (
+    _wgmma_packed_count_model as _packed_count_model)
 
 
 def _codes(rng, nq, nd, length):
@@ -121,14 +124,12 @@ def test_tetrahedron_dot_counts_matches():
                                   pk.pack_scale(20) * (4 * matches - 20))
 
 
-#: guide lengths at the packed kernels' k32-step edges: 1 step (L 1, 5),
-#: 2 (L 10), 3 (L 11, 16), 4 (L 20, 21); lane 3L straddles a step at every
-#: offset class, and 3L = 63 is not a multiple of 4 at L 21
+#: guide lengths at the packed kernels' k32-step edges: 1 step (L 1, 5,
+#: 10), 2 (L 11, 16, 20, 21); lane 3L at each offset class of a word, and
+#: 3L = 63 = K - 1 at L 21
 MODEL_LENGTHS = [1, 5, 10, 11, 16, 20, 21]
 #: k at the top-k's list edges: kcap 1, 2, 4, 8, 32 and 128
 MODEL_KS = [1, 2, 3, 5, 20, 128]
-#: pair rows a tile, pair rows a batch, queries a block and a warp
-TILE, BATCH, BLOCK, WARP = 128, 16, 256, 32
 
 
 def _model_editdists(length):
@@ -137,179 +138,6 @@ def _model_editdists(length):
     first_neg = -(-(3 * length + 1) // 4)
     return sorted({e for e in (0, 1, 2, 3, first_neg, length)
                    if e <= length})
-
-
-def _steps(length):
-    """(even k32 steps, all k32 steps) of the split product."""
-    return -(-3 * length // 32), -(-6 * length // 32)
-
-
-def _a_fragments(qrows, length):
-    """csrc/packed_common.cuh:load_pair_a: the int8 query rows ``[t|t|0]``
-    as the even operand (steps 0..ES-1, lanes >= 3L zeroed) and the odd
-    one (steps ES-1..NS-1, lanes < 3L zeroed)."""
-    es, ns = _steps(length)
-    lanes = np.arange(32 * ns)
-    a = qrows[:, :32 * ns].astype(np.int64)
-    return (np.where(lanes < 3 * length, a, 0)[:, :32 * es],
-            np.where(lanes >= 3 * length, a, 0)[:, 32 * (es - 1):])
-
-
-def _ring_tile(dbrows, t0, hi, ns):
-    """A ring buffer of the kernels after load_pair_tile: 128 pair rows at
-    a stride of 32 NS + 16 bytes, the first 32 NS bytes of each database
-    row, zero-filled from ``hi``; the 16 pad bytes a row (here 0x55) are
-    never read.  Returns the (128, 32 NS) rows that ldmatrix reads."""
-    stride = 32 * ns + 16
-    ring = np.full((TILE, stride), 0x55, np.int8)
-    part = dbrows[t0:min(t0 + TILE, hi), :32 * ns]
-    ring[:, :32 * ns] = 0
-    ring[:part.shape[0], :32 * ns] = part
-    return ring[:, :32 * ns].astype(np.int64)
-
-
-def _split_sums(even, odd, rows, es, bias_e, bias_o):
-    """acc_e = s*A and acc_o = B of 16 pair rows, from their biases."""
-    return (even @ rows[:, :32 * es].T + bias_e,
-            odd @ rows[:, 32 * (es - 1):].T + bias_o)
-
-
-def _lane_pass(passing):
-    """The count's per-lane gate: (nq, 16) sums >= 0 -> whether the lane
-    holding each sum has one >= 0.  Lane (g, t) of a warp holds rows g,
-    g + 8, g + 16, g + 24 and pair rows 8 nt + 2t + e."""
-    nq = passing.shape[0]
-    pad = np.zeros((-(-nq // WARP) * WARP, BATCH), bool)
-    pad[:nq] = passing
-    lanes = pad.reshape(-1, 4, 8, 2, 4, 2).any(axis=(1, 3, 5))
-    return np.broadcast_to(lanes[:, None, :, None, :, None],
-                           (lanes.shape[0], 4, 8, 2, 4, 2)).reshape(
-                               -1, BATCH)[:nq]
-
-
-def _splits(n2, n_splits):
-    tiles = -(-n2 // TILE)
-    per = -(-tiles // n_splits) * TILE
-    return [(lo, min(n2, lo + per)) for lo in range(0, n_splits * per, per)]
-
-
-def _packed_count_model(q, db, length, editdist, n_splits):
-    """The split-sum count on packed_common.cuh's mma.sync product (the
-    count kernel's body before it ran on wgmma) in numpy: split A
-    fragments from the query rows, database splits of whole 128-row
-    tiles zero-filled at the ragged edge, 16-row batches whose sums
-    start at acc_e = -s(T+1) and acc_o = -(T+1), the lane's sign gate,
-    and each sum >= 0 counted when its guide index is below the split's
-    end and nd."""
-    nd = db.shape[0]
-    qrows, dbrows = (r.numpy() for r in (pk.query_rows(_t(q)),
-                                         pk.db_rows(_t(db))))
-    es, ns = _steps(length)
-    even, odd = _a_fragments(qrows, length)
-    bias_o = -(3 * length - 4 * editdist + 1)
-    bias_e = pk.pack_scale(length) * bias_o
-    out = np.zeros(q.shape[0], np.int32)
-    for lo, hi in _splits(dbrows.shape[0], n_splits):
-        ghi = min(2 * hi, nd)
-        for t0 in range(lo, hi, TILE):
-            tile = _ring_tile(dbrows, t0, hi, ns)
-            for n0 in range(0, min(TILE, hi - t0), BATCH):
-                acc_e, acc_o = _split_sums(even, odd, tile[n0:n0 + BATCH],
-                                           es, bias_e, bias_o)
-                gate = _lane_pass((acc_e >= 0) | (acc_o >= 0))
-                ge = 2 * (t0 + n0 + np.arange(BATCH))
-                hits = (((acc_e >= 0) & (ge < ghi)).astype(np.int32)
-                        + ((acc_o >= 0) & (ge + 1 < ghi)))
-                out += (hits * gate).sum(1, dtype=np.int32)
-    return out
-
-
-def _stage_positions():
-    """The top-k's staging byte of each of a row's 32 batch guides, and
-    the guide that the owner's scan reads from each byte: lane t puts
-    guide 16 nt + 4t + 2e + slot at byte 8t + 4nt + 2e + slot; byte
-    4 wi + b of the row is guide 16 (wi & 1) + 4 (wi >> 1) + b."""
-    j = np.arange(32)
-    nt, t, low = j // 16, (j % 16) // 4, j % 4
-    pos = 8 * t + 4 * nt + low
-    p = np.arange(32)
-    wi, b = p // 4, p % 4
-    return pos, 16 * (wi & 1) + 4 * (wi >> 1) + b
-
-
-def _packed_topk_model(q, db, length, k, n_splits):
-    """csrc/packed_topk.cu's arithmetic in numpy: per block of 256 queries
-    and database split, 16-row batches whose sums start at s * bias and
-    bias, bias = 4 dK - 3L - 1 (dK: the distance of the row's K-th key,
-    L + 1 while its list is not full); a warp's gate (some sum of its 32
-    rows >= 0); each sum staged as its guide's distance ((3L + bias -
-    acc_e / s) >> 2, the division in float32, or (3L + bias - acc_o) >> 2)
-    or 0xff when < 0, at the lane's byte positions; the owner's scan of
-    its row's bytes below 0x80 whose guide is below the split's end and
-    nd into its sorted list of kcap keys; and the merge of the splits'
-    lists.  Returns (nq, min(k, nd, 128)) int64 keys."""
-    nq, nd = q.shape[0], db.shape[0]
-    qrows, dbrows = (r.numpy() for r in (pk.query_rows(_t(q)),
-                                         pk.db_rows(_t(db))))
-    es, ns = _steps(length)
-    s, three_l = pk.pack_scale(length), 3 * length
-    inv_s = np.float32(1) / np.float32(s)
-    k_eff = min(k, nd, 128)
-    kcap = 1 << (k_eff - 1).bit_length()
-    pos, owner = _stage_positions()
-    assert (np.sort(pos) == np.arange(32)).all() and (owner[pos] ==
-                                                     np.arange(32)).all()
-    splits = _splits(dbrows.shape[0], n_splits)
-    lists = np.full((nq, n_splits, kcap), INF_KEY, np.int64)
-    for b0 in range(0, nq, BLOCK):
-        even, odd = _a_fragments(qrows[b0:b0 + BLOCK], length)
-        nb = even.shape[0]
-        for split, (lo, hi) in enumerate(splits):
-            ghi = min(2 * hi, nd)
-            best = np.full((nb, kcap), INF_KEY, np.int64)
-            for t0 in range(lo, hi, TILE):
-                tile = _ring_tile(dbrows, t0, hi, ns)
-                for n0 in range(0, min(TILE, hi - t0), BATCH):
-                    bias = 4 * np.minimum(best[:, -1] >> 24,
-                                          length + 1) - three_l - 1
-                    acc_e, acc_o = _split_sums(
-                        even, odd, tile[n0:n0 + BATCH], es,
-                        s * bias[:, None], bias[:, None])
-                    assert (acc_e % s == 0).all()
-                    assert np.abs(acc_e).max() < 1 << 13
-                    a = np.rint(acc_e.astype(np.float32) * inv_s)
-                    top = three_l + bias[:, None]
-                    d = np.empty((nb, 2 * BATCH), np.int64)
-                    d[:, 0::2] = np.where(acc_e >= 0,
-                                          (top - a.astype(np.int64)) >> 2,
-                                          0xff)
-                    d[:, 1::2] = np.where(acc_o >= 0, (top - acc_o) >> 2,
-                                          0xff)
-                    passing = d < 0x80
-                    assert (d[passing] >= 0).all()
-                    assert (d[passing] <= length).all()
-                    stage = np.empty_like(d)
-                    stage[:, pos] = d
-                    gi = 2 * (t0 + n0) + owner
-                    for w0 in range(0, nb, WARP):
-                        w = slice(w0, w0 + WARP)
-                        if not passing[w].any():
-                            continue
-                        keys = np.where((stage[w] < 0x80) & (gi < ghi),
-                                        (stage[w] << 24) | gi, INF_KEY)
-                        best[w] = np.sort(np.concatenate([best[w], keys], 1),
-                                          1)[:, :kcap]
-            lists[b0:b0 + BLOCK, split] = best
-    return np.sort(lists.reshape(nq, -1), 1)[:, :k_eff]
-
-
-def _keys_to_pairs(keys, k):
-    """Keys -> (dist, idx) padded with -1 to k columns, as the JAX package
-    returns them."""
-    d, i = (t.numpy() for t in unpack_keys(torch.from_numpy(
-        keys.astype(np.int32))))
-    pad = np.full((keys.shape[0], k - keys.shape[1]), -1, np.int32)
-    return np.concatenate([d, pad], 1), np.concatenate([i, pad], 1)
 
 
 def _model_codes(length, nq, nd, seed):
@@ -321,13 +149,12 @@ def _model_codes(length, nq, nd, seed):
 @pytest.mark.parametrize("nd", [600, 601])
 @pytest.mark.parametrize("length", MODEL_LENGTHS)
 def test_packed_count_model_matches_plain_and_jax(length, nd):
-    """The split-sum arithmetic of packed_common.cuh's mma.sync product
-    (the packed top-k's, and the count's before it ran on wgmma): its
-    split sums, biases, sign gate and global-index mask equal
-    ``packed_count_plain`` and the JAX packed count kernel exactly: every
-    k32-step edge (L), nd odd and even, a database ragged against its
-    128-row tiles, 1 to 3 splits, every editdist edge including those
-    where a zero slot passes the gate."""
+    """The packed count's wgmma design (split B rows with their bias
+    lanes, the query's -(T + 1), the sign gate and the index mask of
+    padding slots) equals ``packed_count_plain`` and the JAX packed count
+    kernel exactly: every k32-step edge (L), nd odd and even, a database
+    ragged against its 64-row tiles of pair rows, 1 to 3 splits, every
+    editdist edge including those where a zero slot passes the gate."""
     q, db = _model_codes(length, 300, nd, 300 + length + nd)
     qr, dbr = pk.query_rows(_t(q)), pk.db_rows(_t(db))
     dbj = pp.prepare_db_packed(db, 128)
@@ -347,32 +174,14 @@ def test_packed_count_model_matches_plain_and_jax(length, nd):
             assert (want > 0).all()
 
 
-def _check_topk_model(q, db, length, ks):
-    """The model at 1 to 3 splits, and the JAX packed kernel, against
-    ``packed_topk_plain`` at each k of ``ks``."""
-    nd = db.shape[0]
-    qr, dbr = pk.query_rows(_t(q)), pk.db_rows(_t(db))
-    dbj = pp.prepare_db_packed(db, 128)
-    for k in ks:
-        want = pk.packed_topk_plain(qr, dbr, nd, length, k).numpy()
-        for n_splits in (1, 2, 3):
-            np.testing.assert_array_equal(
-                _packed_topk_model(q, db, length, k, n_splits), want,
-                err_msg=f"k {k}, {n_splits} splits")
-        ref = pp.packed_topk_device(q, dbj, nd, k, length, db_tile=128,
-                                    interpret=True)
-        got = _keys_to_pairs(want, k)
-        np.testing.assert_array_equal(got[0], ref[0], err_msg=f"k {k}")
-        np.testing.assert_array_equal(got[1], ref[1], err_msg=f"k {k}")
-
-
 @pytest.mark.parametrize("length", MODEL_LENGTHS)
 def test_packed_topk_model_matches_plain_and_jax(length):
-    """The tensor-core top-k's per-row bias from dK, warp gate, staged
-    distances, owner scan, splits and merge equal ``packed_topk_plain``
-    and the JAX packed top-k kernel exactly: every k32-step edge (L),
-    every list edge (k), 1 to 3 splits, two query blocks, an odd database
-    ragged against its tiles with duplicated guides."""
+    """The packed top-k's wgmma design (B rows in units, the gate in the
+    bias lane K - 1, sub-lists and quad gate or row lists, splits and
+    merge) equals ``packed_topk_plain`` and the JAX packed top-k kernel
+    exactly: every k32-step edge (L), every list edge (k), 1 to 3 splits,
+    two query blocks, an odd database ragged against its tiles with
+    duplicated guides."""
     q, db = _model_codes(length, 300, 601, 400 + length)
     _check_topk_model(q, db, length, MODEL_KS)
 
@@ -563,13 +372,14 @@ def cuda_device():
 
 #: the packed kernels' tiling edges on the card, at a small size: k32
 #: steps (L), query blocks of 256 (nq), a database ragged against its
-#: 128-row tiles, even and odd (nd); chip_smoke.py's phase 3d runs the same
-#: edges at full size
+#: 64-row tiles of pair rows, even and odd (nd); chip_smoke.py's phase 3d
+#: runs the same edges at full size
 EDGE_LENGTHS = [1, 10, 11, 16, 20, 21]
 EDGE_NQ = (1, 15, 300)
 EDGE_ND = (2_050, 2_051)
-#: the wgmma count's edges: its m64 tiles and 256-query blocks (nq), and
-#: databases ragged against its 64-row tiles of pair rows, even and odd
+#: the wgmma kernels' edges: their m64 tiles and 256-query blocks (nq),
+#: and larger databases ragged against their 64-row tiles of pair rows,
+#: even and odd
 WG_EDGE_NQ = (63, 64, 65, 255, 256, 257)
 WG_EDGE_ND = (200_002, 200_003)
 
@@ -579,8 +389,9 @@ WG_EDGE_ND = (200_002, 200_003)
 def test_packed_kernels_edges_on_card(cuda_device, length):
     """Both packed kernels against their plain versions at their tiling
     edges, every editdist edge of the count (0-3, the first with T < 0,
-    L) and every list edge of the top-k (k); then the wgmma count at its
-    own edges (WG_EDGE_NQ, WG_EDGE_ND) at the same editdists and 7."""
+    L) and every list edge of the top-k (k); then both at the m64 tile
+    and block edges (WG_EDGE_NQ, WG_EDGE_ND), the count at the same
+    editdists and 7."""
     for nd in EDGE_ND:
         qn, dbn = _model_codes(length, max(EDGE_NQ), nd, length + nd)
         q = pk.query_rows(_t(qn).to(cuda_device))
@@ -607,3 +418,8 @@ def test_packed_kernels_edges_on_card(cuda_device, length):
                     stream.packed_count(q[:nq], db, nd, length, e),
                     pk.packed_count_plain(q[:nq], db, nd, length, e)), \
                     (nd, nq, e)
+            for k in MODEL_KS:
+                assert torch.equal(
+                    stream.packed_topk(q[:nq], db, nd, length, k),
+                    pk.packed_topk_plain(q[:nq], db, nd, length, k)), \
+                    (nd, nq, k)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the count kernels and the 2-bit top-k of one tree of the port on
-the card: K4, the packed-pair count, and K1, the 2-bit count, on the same
-guides; and K2, the 2-bit top-k.
+"""Time the count and top-k kernels of one tree of the port on the card:
+K4, the packed-pair count, and K1, the 2-bit count, on the same guides;
+K2, the 2-bit top-k; and K5, the packed-pair top-k.
 
 Usage, on a machine with one H100:
 
@@ -18,7 +18,9 @@ the control triage's shape (2^19 random candidates against the guides,
 editdist 7 and 2), and that K2 equals the plain top-k at the design run's
 phase-2 shape (the first 101,513 guides against all, k 1, 4, 8, 16 and
 32, each a kcap) and at 4096 x 200,000 (k 5), and times K1 on the
-phase-2 shape (editdist 2) beside it; then prints one JSON line:
+phase-2 shape (editdist 2) beside it; and that K5 equals the plain packed
+top-k on K4's guides at the phase-2 shape (the same k) and at
+4096 x 200,001 (k 5); then prints one JSON line:
 each kernel's mean ms over 3 calls at each shape (10 at the small one),
 by CUDA events, with the card's name.  Without a card it exits 1 and
 prints nothing.
@@ -101,6 +103,18 @@ def main(root: str) -> int:
             if not torch.equal(k2(), want[:, :k]):
                 raise AssertionError(f"K2 != plain at {shape}, k {k}")
             res[f"k2_ms_{shape}_{k}"] = cuda_ms(k2, reps)
+    for shape, q, rows, nd, ks, reps in (
+            ("phase2", pk.query_rows(codes[:N_PHASE2]), db, N_GUIDES,
+             PHASE2_KS, 3),
+            ("4096x200001", pk.query_rows(codes[:4096]),
+             pk.db_rows(codes[:200_001]), 200_001, (5,), 10)):
+        want = pk.packed_topk_plain(q, rows, nd, LENGTH, max(ks))
+        for k in ks:
+            def k5(q=q, rows=rows, nd=nd, k=k):
+                return stream.packed_topk(q, rows, nd, LENGTH, k)
+            if not torch.equal(k5(), want[:, :k]):
+                raise AssertionError(f"K5 != plain at {shape}, k {k}")
+            res[f"k5_ms_{shape}_{k}"] = cuda_ms(k5, reps)
     print(json.dumps(res), flush=True)
     return 0
 
