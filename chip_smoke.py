@@ -13,18 +13,19 @@ Phases, one line each; any failure exits non-zero:
    shared memory for every kernel (each kcap of the top-k) and its wgmma
    notes, and by ``cuobjdump -sass`` the tensor-core instructions: IGMMA
    (int8 wgmma) in the 2-bit and the packed count and in every kcap of
-   both top-k kernels, which may hold no IMMA and whose products ptxas may
-   not serialise, BMMA (1-bit) in the 3-gram count at each of its 8 k256
-   step counts,
-   none with POPC or IDP4A (dp4a), and none may spill on the main path
-   (the counts, top-k kcap <= 8, the 3-gram count at <= 5 steps); every
-   wgmma kernel's LOP3, SHF, IMAD, BAR, SYNCS (mbarrier) and WARPGROUP
-   counts;
+   both top-k kernels, BGMMA (1-bit wgmma) in the 3-gram count at each of
+   its 8 k256 step counts; none may hold mma.sync (IMMA, BMMA), POPC or
+   IDP4A (dp4a), ptxas may serialise none's products, and none may spill
+   on the main path (the counts, top-k kcap <= 8, the 3-gram count at every
+   step count); every wgmma kernel's LOP3, SHF, IMAD, BAR, SYNCS (mbarrier)
+   and WARPGROUP counts;
    then the tensor-core rate probe (csrc/mma_rate.cu): s8 m16n8k32 and b1
-   m16n8k256 mma.sync chains and the s8 wgmma m64n128k32 chain the 2-bit
-   count issues, each kind's operations a second and SASS opcode, from the
-   mma.sync ratio the card's 1-bit rate that the 3-gram count's bound
-   uses, and the wgmma rate that phase 5 reads both counts against;
+   m16n8k256 mma.sync chains and the s8 wgmma m64n128k32 and b1 wgmma
+   m64n128k256 chains the counts issue, each kind's operations a second
+   and SASS opcode, the b1 wgmma's ratio to the s8 wgmma and to the b1
+   mma.sync, from the mma.sync ratio the card's 1-bit rate that the 3-gram
+   count's bound uses, and the wgmma rates that phases 5 and 10 read the
+   counts against;
 3. each kernel against its plain PyTorch version on the card, exact
    equality: the 2-bit kernels on random codes with N bases and duplicated
    rows (4096 queries x 200,000 guides, L 20 and 27), the packed-pair
@@ -85,7 +86,8 @@ Phases, one line each; any failure exits non-zero:
    1.3e12 pairs of 3-gram counting and a large ambiguous set, a run of its
    own rather than a smoke phase; then one timed tier-1 count at genome
    size (every unique guide, t 3, thresh 8), equal to the plain count on a
-   fixed sample of 4,096 queries, with both its bounds;
+   fixed sample of 4,096 queries, with both its bounds and the time its
+   b1 wgmma product takes at the probe's rate;
 11. the scored design run: phase 6's run with --knum 3
    --doench_efficiency_score --cfd_score.  The three golden Doench floats
    are float32-exact; the table holds phase 6's rows less those whose
@@ -143,8 +145,8 @@ rows (4096 x 200,000, L 20 and 27, t 3 and 4, both directions, the
 threshold's edges), and the Myers top-k on codes with N bases, duplicates
 and near-identical pairs (LEVEN_SHAPE, L 20, 27 and 32, k 1, 2, 5, 64 and
 128); then the 3-gram count at its tiling's edges (FEATURE_EDGE_WORDS,
-nq 1, 15 and 4095, nd 200,003, an all-N block, thresholds 0, G - 3t - 1,
-G - 1 and G, both directions).
+nq 1, 63, 64, 65, 255, 257 and 4095, nd 200,003, an all-N block,
+thresholds 0, G - 3t - 1, G - 1 and G, both directions).
 
 The line before the last is a JSON object describing each kernel (launches
 in the path that uses it: phase 6 or 7 for the Hamming kernels, phase 9
@@ -215,7 +217,8 @@ CFD_SAMPLE = 1000
 EDGE_LENGTHS = (1, 8, 20, 24, 25, 27, 32)
 EDGE_NQ = (1, 15, 4095)
 EDGE_ND = 200_003
-#: the 2-bit count's edges (phase 3b): its m64 tiles of queries (63, 64,
+#: the edges of the counts on the ring block (the 2-bit count, phase 3b;
+#: the 3-gram count's queries, phase 3c): its m64 tiles of queries (63, 64,
 #: 65), its 256-query blocks (255, 257), and databases ragged against its
 #: 128-row tile
 COUNT_EDGE_NQ = (1, 63, 64, 65, 255, 257, 4095)
@@ -285,6 +288,13 @@ def feature_bounds(nq, nd, n_words, nbytes, b1_peak):
     ops = 2 * nq * nd * 64 * n_words
     return {"int8": bound_ms(ops, INT8_OPS_PER_S, nbytes),
             "1-bit": bound_ms(ops, b1_peak, nbytes)}
+
+
+def feature_product_ms(nq, nd, n_words, b1_wgmma):
+    """ms that the 3-gram count's own product takes at ``b1_wgmma``, the
+    probe's b1 wgmma rate (phase 2): 2 * nq * nd * 256 S bit operations,
+    its rows padded to S = ceil(n_words / 4) whole k256 steps."""
+    return 2 * nq * nd * 256 * -(-n_words // 4) / b1_wgmma * 1e3
 
 
 def least_bound(bounds):
@@ -657,23 +667,24 @@ def phase_leven_kernels(fcount, ltopk, dev, b1_peak):
 def phase_feature_edges(fcount, dev):
     """The 3-gram count kernel against its plain version at its tiling's
     edges: rows of G words at every k256 step edge (FEATURE_EDGE_WORDS),
-    query blocks (EDGE_NQ), a database ragged against its tiles (EDGE_ND),
-    an all-N query block (zero rows), the thresholds 0, G - 3t - 1, G - 1
-    and G, and both dilation directions (t 3)."""
+    its m64 tiles and 256-query blocks (COUNT_EDGE_NQ), a database ragged
+    against its 128-row tiles (EDGE_ND), an all-N query block (zero rows),
+    the thresholds 0, G - 3t - 1, G - 1 and G, and both dilation
+    directions (t 3)."""
     from guidemaker_tpu_torch.knn import stream
     from guidemaker_tpu_torch.knn.features import (feature_count_plain,
                                                    gram_rows)
     rng = np.random.default_rng(99)
     t, n = 3, 0
     for glen in FEATURE_EDGE_WORDS:
-        qn, dbn = random_codes(rng, max(EDGE_NQ), EDGE_ND, glen + 2)
+        qn, dbn = random_codes(rng, max(COUNT_EDGE_NQ), EDGE_ND, glen + 2)
         qn[512:768] = 4
         qc, dbc = (torch.from_numpy(a).to(dev) for a in (qn, dbn))
         threshs = sorted({x for x in (0, glen - 3 * t - 1, glen - 1, glen)
                           if x >= 0})
         for way, q, db in (("1", gram_rows(qc, 0), gram_rows(dbc, t)),
                            ("2", gram_rows(qc, t), gram_rows(dbc, 0))):
-            for nq in EDGE_NQ:
+            for nq in COUNT_EDGE_NQ:
                 for thresh in threshs:
                     fcount.compare(
                         stream.feature_count(q[:nq], db, glen, thresh),
@@ -682,7 +693,7 @@ def phase_feature_edges(fcount, dev):
                         f"thresh={thresh}")
                     n += 1
     say(f"phase 3c feature count kernel vs plain at its tiling edges: exact "
-        f"in {n} comparisons, G {FEATURE_EDGE_WORDS}, nq {EDGE_NQ}, nd "
+        f"in {n} comparisons, G {FEATURE_EDGE_WORDS}, nq {COUNT_EDGE_NQ}, nd "
         f"{EDGE_ND}, an all-N block, thresh 0,G-3t-1,G-1,G (t {t}), both "
         f"directions")
 
@@ -1206,7 +1217,7 @@ def phase_leven_design(ltopk, dev, hamming_out, hamming_controls):
                 + 4 * len(sample) * cfg.knum)
 
 
-def phase_leven_tiers(fcount, dev, uniq, b1_peak):
+def phase_leven_tiers(fcount, dev, uniq, b1_peak, b1_wgmma):
     from guidemaker_tpu_torch.knn import KnnIndex, stream
     from guidemaker_tpu_torch.knn.features import (feature_count_plain,
                                                    gram_rows)
@@ -1260,8 +1271,9 @@ def phase_leven_tiers(fcount, dev, uniq, b1_peak):
         f"launches: 2-bit {launches[:2]}, feature count {launches[4]}, leven "
         f"top-k {launches[5]}; tier-1 count kernel {ms:.3f} ms "
         f"({n * n / ms / 1e9:.4f} T pairs/s), plain {plain_ms:.3f} ms; "
-        + bounds_text(bounds, ms))
-    tier1_genome(fcount, dev, uniq, b1_peak)
+        + bounds_text(bounds, ms) + "; "
+        + product_text(n, n, 18, b1_wgmma, ms))
+    tier1_genome(fcount, dev, uniq, b1_peak, b1_wgmma)
     return mask, wall
 
 
@@ -1275,7 +1287,15 @@ def bounds_text(bounds, ms):
                         if k != kind))
 
 
-def tier1_genome(fcount, dev, uniq, b1_peak):
+def product_text(nq, nd, n_words, b1_wgmma, ms):
+    """The time the 3-gram count's product takes at the probe's b1 wgmma
+    rate (feature_product_ms), and its share of ``ms``."""
+    t = feature_product_ms(nq, nd, n_words, b1_wgmma)
+    return (f"its b1 wgmma product at the probe's {b1_wgmma / 1e12:,.1f} "
+            f"T/s {t:.4f} ms ({t / ms:.3f} of its time)")
+
+
+def tier1_genome(fcount, dev, uniq, b1_peak, b1_wgmma):
     """One timed tier-1 count at genome size: every unique guide's plain
     3-gram row against every guide's row dilated by t 3, thresh 8 (dist 4),
     equal to the plain count on a fixed sample of 4,096 queries."""
@@ -1305,7 +1325,8 @@ def tier1_genome(fcount, dev, uniq, b1_peak):
         f"queries (plain {plain_ms:.3f} ms for the sample); kernel "
         f"{ms:.3f} ms ({n * n / ms / 1e9:.4f} T pairs/s), "
         f"{int((got >= 2).sum())} queries ambiguous; "
-        + bounds_text(bounds, ms))
+        + bounds_text(bounds, ms) + "; "
+        + product_text(n, n, 18, b1_wgmma, ms))
 
 
 def phase_scored_design(topk, dev, hamming_controls, hamming_table):
@@ -1860,28 +1881,32 @@ def lists_note(kcap):
     return ("sub-lists" if kcap <= 32 else "row lists") + " in shared memory"
 
 
-#: the kernels on wgmma (the 2-bit and packed counts, both top-k kernels at
-#: every kcap): IGMMA and no IMMA in their SASS, no serialisation note from
-#: ptxas, and each one's instantiations (phase 2 prints their logic,
-#: barrier and warpgroup counts)
+#: the kernels on wgmma (the three counts, both top-k kernels at every
+#: kcap, the 3-gram count at every step count): their wgmma opcode and no
+#: mma.sync (IMMA, BMMA) in their SASS, no serialisation note from ptxas,
+#: and each one's instantiations (phase 2 prints their logic, barrier and
+#: warpgroup counts)
 WGMMA_KERNELS = {
     "count_kernel": "k32 steps 1-4, bias lane or not",
     "packed_count_kernel": "L 1-21 producers, k32 steps 1-2",
     **{fn: "k32 steps 1-4, bias lane or not, " + lists_note(k)
        for k, fn in zip(KCAPS, topk_kernels(KCAPS))},
     **{fn: "L 1-21 producers in units, k32 steps 1-2, " + lists_note(k)
-       for k, fn in zip(KCAPS, topk_kernels(KCAPS, "packed_"))}}
+       for k, fn in zip(KCAPS, topk_kernels(KCAPS, "packed_"))},
+    **{fn: f"{s} k256 step{'s' * (s > 1)}, {4 * s - 3}-{4 * s} words"
+       for s, fn in zip(range(1, 9), feature_kernels(range(1, 9)))}}
 #: the tensor-core kernels whose SASS phase 2 reads, each with the opcode
-#: it must hold (every kcap a top-k kernel is built for, every step count
-#: of the 3-gram count: 1..8 for 1..30 words), and those that must not
-#: spill (the counts, the top-k kcaps the main path runs, and the 3-gram
-#: count at S <= 5, guides of <= 22 bases)
-TC_KERNELS = {**{fn: "BMMA" for fn in feature_kernels(range(1, 9))},
-              **{fn: "IGMMA" for fn in WGMMA_KERNELS}}
+#: it must hold (IGMMA: int8 wgmma at every kcap a top-k kernel is built
+#: for; BGMMA: 1-bit wgmma at every step count of the 3-gram count, 1..8
+#: for 1..30 words), and those that must not spill (the counts, the top-k
+#: kcaps the main path runs, and the 3-gram count at every step count: A
+#: in registers at S <= 5, guides of <= 22 bases, in shared memory above)
+TC_KERNELS = {fn: "BGMMA" if fn.startswith("feature_") else "IGMMA"
+              for fn in WGMMA_KERNELS}
 NO_SPILL_KERNELS = (("count_kernel", "packed_count_kernel")
                     + topk_kernels((1, 2, 4, 8))
                     + topk_kernels((1, 2, 4, 8), "packed_")
-                    + feature_kernels(range(1, 6)))
+                    + feature_kernels(range(1, 9)))
 #: the tensor-core rate probe's kernel for each kind (csrc/mma_rate.cu):
 #: (kernel, gm_mma_rate kind, blocks an SM, iterations, M, N, K of one
 #: product, products a warp (mma.sync) or a warpgroup (wgmma) an iteration,
@@ -1890,22 +1915,23 @@ PROBE_KERNELS = {
     "s8 m16n8k32": ("mma_rate_kernel<0>", 0, 4, 4096, 16, 8, 32, 8, 8),
     "b1 m16n8k256": ("mma_rate_kernel<1>", 1, 4, 4096, 16, 8, 256, 8, 8),
     "s8 wgmma m64n128k32": ("wgmma_rate_kernel", 2, 2, 256, 64, 128, 32, 8,
-                            2)}
-#: the opcodes phase 2 counts: tensor-core products (IGMMA: int8 wgmma),
-#: and the CUDA-core popcount and dp4a (``IDP.4A``) that a tensor-core
-#: kernel must not hold; for the wgmma counts also the logic, the barriers
-#: (BAR: named and block barriers, SYNCS: mbarriers) and the warpgroup
-#: fences and waits
-SASS_OPS = ("IMMA", "BMMA", "IGMMA", "POPC", "IDP")
-WGMMA_SASS_OPS = ("IGMMA", "LOP3", "SHF", "IMAD", "BAR", "SYNCS",
-                  "WARPGROUP")
+                            2),
+    "b1 wgmma m64n128k256": ("wgmma_b1_rate_kernel", 3, 2, 256, 64, 128,
+                             256, 8, 2)}
+#: the opcodes phase 2 counts: tensor-core products (IMMA and BMMA:
+#: mma.sync int8 and 1-bit; IGMMA and BGMMA: wgmma int8 and 1-bit), and the
+#: CUDA-core popcount and dp4a (``IDP.4A``) that a tensor-core kernel must
+#: not hold; for the wgmma kernels also the logic, the barriers (BAR: named
+#: and block barriers, SYNCS: mbarriers) and the warpgroup fences and waits
+SASS_OPS = ("IMMA", "BMMA", "IGMMA", "BGMMA", "POPC", "IDP")
+WGMMA_SASS_OPS = ("LOP3", "SHF", "IMAD", "BAR", "SYNCS", "WARPGROUP")
 
 
 def kernel_sass(lib: str):
     """{kernel: {opcode: count}} of SASS_OPS for each of TC_KERNELS and
     PROBE_KERNELS, from the SASS of the built library by ``cuobjdump
     -sass`` from nvcc's toolkit.  An opcode is a word up to its first dot,
-    so the ``.POPC`` of ``BMMA.168256.AND.POPC`` is not a POPC."""
+    so the ``.POPC`` of a 1-bit product's ``.AND.POPC`` is not a POPC."""
     from guidemaker_tpu_torch.knn import build
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
@@ -1951,6 +1977,10 @@ def mma_rates(dev, sass):
         f"{rates['s8 wgmma m64n128k32'] / rates['s8 m16n8k32']:.4f}; wgmma "
         f"{rates['s8 wgmma m64n128k32'] / INT8_OPS_PER_S:.4f} of the "
         f"{INT8_OPS_PER_S / 1e12:,.0f} TOP/s int8 peak")
+    b1_wgmma = rates["b1 wgmma m64n128k256"]
+    say(f"  probe b1 wgmma: {b1_wgmma / rates['s8 wgmma m64n128k32']:.4f} "
+        f"x the s8 wgmma in operations, "
+        f"{b1_wgmma / rates['b1 m16n8k256']:.4f} x the b1 mma.sync")
     ratio = rates["b1 m16n8k256"] / rates["s8 m16n8k32"]
     say(f"  probe b1/s8: {ratio:.4f} in operations, {ratio * 32 / 256:.4f} "
         f"in products; 1-bit rate taken as {ratio:.4f} x "
@@ -2006,10 +2036,12 @@ def main() -> int:
         f"{fn} {sass[fn][op]} {op} {sass[fn]['POPC']} POPC "
         f"{sass[fn]['IDP']} IDP4A" for fn, op in TC_KERNELS.items()))
     for fn, parts in WGMMA_KERNELS.items():
-        if sass[fn]["IMMA"]:
-            raise AssertionError(f"{fn} SASS holds mma.sync (IMMA)")
+        if sass[fn]["IMMA"] or sass[fn]["BMMA"]:
+            raise AssertionError(f"{fn} SASS holds mma.sync (IMMA, BMMA): "
+                                 f"{sass[fn]}")
         say(f"  SASS {fn} ({parts}): " + ", ".join(
-            f"{sass[fn][op]} {op}" for op in WGMMA_SASS_OPS))
+            f"{sass[fn][op]} {op}" for op in (TC_KERNELS[fn],)
+            + WGMMA_SASS_OPS))
     rates = mma_rates(dev, sass)
     b1_peak = rates["b1 m16n8k256"] / rates["s8 m16n8k32"] * INT8_OPS_PER_S
     count = Kernel("hamming_count",
@@ -2047,7 +2079,8 @@ def main() -> int:
     phase_design_packed(pcount, ptopk, dev, hamming_out)
     leven3 = phase_leven_retention(dev, uniq)
     phase_leven_design(ltopk, dev, hamming_out, hamming_controls)
-    leven4 = phase_leven_tiers(fcount, dev, uniq, b1_peak)
+    leven4 = phase_leven_tiers(fcount, dev, uniq, b1_peak,
+                               rates["b1 wgmma m64n128k256"])
     phase_scored_design(topk, dev, hamming_controls, hamming_table)
     phase_app(dev)
     sharded_controls = phase_sharded(

@@ -1,13 +1,15 @@
-// Hopper's warpgroup path to the int8 tensor cores, for the count kernels
-// (hamming_count.cu, packed_count.cu) and the tensor-core rate probe
+// Hopper's warpgroup path to the tensor cores, for the count kernels
+// (hamming_count.cu, packed_count.cu, feature_count.cu), the top-k kernels
+// (hamming_topk.cu, packed_topk.cu) and the tensor-core rate probe
 // (mma_rate.cu): the shared-memory matrix descriptor, the s8 wgmma
-// m64n128k32 product with A in registers, its fences, commit and wait,
-// the mbarriers of a shared-memory ring, named barriers, and setmaxnreg,
-// all inline PTX for sm_90a (wgmma and setmaxnreg exist for no other
-// target); then the block the count kernels and the top-k kernels are
-// built on (ring_roles, produce_tiles, consume_tiles), its count epilogue
-// (count_tile) and its top-k epilogue (QuadLists, RowLists) for one-hot
-// and tetrahedral rows.
+// m64n128k32 and the b1 wgmma m64n128k256 .and.popc products with A in
+// registers (the b1 also with A in shared memory), their fences, commit
+// and wait, the mbarriers of a shared-memory ring, the tensor memory
+// accelerator's tile copy, named barriers, and setmaxnreg, all inline PTX
+// for sm_90a (wgmma and setmaxnreg exist for no other target); then the
+// block these kernels are built on (ring_roles, produce_tiles,
+// consume_tiles), its count epilogue (count_tile) and its top-k epilogue
+// (QuadLists, RowLists) for one-hot and tetrahedral rows.
 //
 // The block: one producer warpgroup fills a ring of kStages shared-memory
 // tiles of 128 B rows, each signalled on its `full` mbarrier; kConsumers
@@ -28,7 +30,11 @@
 //     (r / 8) * 256 KS + (k / 16) * 128 + (r % 8) * 16 + k % 16,
 // so the core matrices of one 8-row group are contiguous along K (leading
 // byte offset 128) and the 8-row groups follow each other (stride byte
-// offset 256 KS).  The k32 step s starts 256 s bytes into the tile.
+// offset 256 KS).  The k32 step s starts 256 s bytes into the tile.  A b1
+// k256 step is the same 32 bytes a row, in the same B and A layouts, with
+// each byte read as 8 consecutive k lanes.  (The 3-gram count stores its
+// tiles chunk-major instead, the same core matrices at other offsets, so
+// that the TMA can write them: feature_count.cu.)
 //
 // A fragments (wgmma with A in registers, .s8): warp w of the warpgroup
 // holds rows 16 w .. 16 w + 15 of the m64 tile in the layout of
@@ -154,6 +160,81 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_fresh(
       : "memory");
 }
 
+// d (+)= popcount(a & B) over one k256 step of 1-bit lanes: 64 rows of A
+// in registers, 128 rows of B at the descriptor, each 32 bytes, in the
+// layouts of the s8 k32 step with each byte read as 8 consecutive k lanes;
+// d = popcount(a & B) when scale_d is 0.  Asynchronous as
+// wgmma_m64n128k32_s8.
+__device__ __forceinline__ void wgmma_m64n128k256_b1(int (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+// wgmma_m64n128k256_b1 with A, 64 rows of 32 bytes, at the shared-memory
+// descriptor adesc in B's layout, for a kernel whose A fragments would not
+// fit in its registers beside the sums.
+__device__ __forceinline__ void wgmma_m64n128k256_b1_ss(int (&d)[64],
+                                                        uint64_t adesc,
+                                                        uint64_t bdesc,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d)
+      : "memory");
+}
+
 // Makes this thread's ordinary shared-memory stores visible to the async
 // proxy that wgmma reads B through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -176,6 +257,42 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                :
                : "r"(bar)
                : "memory");
+}
+
+// count arrivals on the barrier at once.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, int count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n"
+               :
+               : "r"(bar), "r"(count)
+               : "memory");
+}
+
+// One arrival on the barrier that also expects bytes more of asynchronous
+// copies (tma_load_3d) before its phase can complete.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :
+               : "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// The tensor memory accelerator's copy of the box of the 3-dimensional
+// tensor map at generic address map whose first element is at
+// coordinates (c0, c1, c2), to shared address dst; elements out of the
+// tensor's bounds are written as zeros, and the barrier at bar counts
+// the box's bytes when they have landed.  The copy goes through the
+// async proxy, as wgmma's reads do.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(c2), "r"(bar)
+      : "memory");
 }
 
 // Wait until the phase of the barrier with parity `parity` has completed.

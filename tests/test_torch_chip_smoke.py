@@ -111,9 +111,38 @@ def test_k5_is_held_to_wgmma_at_every_kcap():
     assert set(cs.PACKED_MMA_SYNC_KCAP_MS) == set(cs.SWEEP_KCAPS)
 
 
+def test_k1p_is_held_to_wgmma_at_every_step_count():
+    """K1', the 3-gram count, must compile to BGMMA (the 1-bit wgmma) at
+    every k256 step count it is built for (1..8), with no mma.sync (IMMA,
+    BMMA) and no serialisation note (WGMMA_KERNELS), and spill at none; the
+    rate probe times the b1 wgmma m64n128k256 it issues, shaped like the s8
+    chain; phase 3c holds it at step counts with A in registers (1, 5) and
+    in shared memory (7, 8), at odd G (8-byte copies) and even G (16-byte
+    copies), and at the m64 tile and 256-query block edges; phase 10 reads
+    its time against its product at the probe's rate, 256 bits a step of
+    its padded rows."""
+    feature = {f"feature_count_kernel<{s}>" for s in range(1, 9)}
+    assert feature <= set(cs.WGMMA_KERNELS)
+    assert all(cs.TC_KERNELS[fn] == "BGMMA" for fn in feature)
+    assert not {"BMMA", "IMMA"} & set(cs.TC_KERNELS.values())
+    assert feature <= set(cs.NO_SPILL_KERNELS)
+    assert "BGMMA" in cs.SASS_OPS
+    fn, kind, _, _, m, n, k, _, issuers = cs.PROBE_KERNELS[
+        "b1 wgmma m64n128k256"]
+    assert (fn, kind, m, n, k, issuers) == ("wgmma_b1_rate_kernel", 3, 64,
+                                            128, 256, 2)
+    steps = {-(-g // 4) for g in cs.FEATURE_EDGE_WORDS}
+    assert {1, 5, 7, 8} <= steps
+    assert {g % 2 for g in cs.FEATURE_EDGE_WORDS} == {0, 1}
+    assert {63, 64, 65, 255, 257} <= set(cs.COUNT_EDGE_NQ)
+    assert cs.feature_product_ms(1000, 1000, 18, 2.56e9) == pytest.approx(
+        1000.0)
+
+
 def test_count_probe_needs_a_card(capsys):
-    """tools/count_probe.py, which times K4 against K1 and both top-k
-    kernels on the card, exits 1 and prints no result without one."""
+    """tools/count_probe.py, which times K4 against K1, both top-k
+    kernels and K1' on the card, exits 1 and prints no result without
+    one."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(os.path.dirname(
@@ -122,4 +151,27 @@ def test_count_probe_needs_a_card(capsys):
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
     assert probe.main(os.path.dirname(os.path.dirname(path))) == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_feature_variants_apply_and_need_a_card(capsys):
+    """tools/feature_variants.py's edits of K1' each apply once to
+    csrc/feature_count.cu as it stands (a variant that no longer applies
+    would time the wrong kernel), and without a card it exits 1 and prints
+    no result."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "feature_variants", os.path.join(root, "tools", "feature_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(root, "guidemaker_tpu_torch", "csrc",
+                           "feature_count.cu")) as fh:
+        src = fh.read()
+    edited = {name: tool.variant_source(src, edits)
+              for name, (edits, _) in tool.VARIANTS.items()}
+    assert edited["shipped"] == src
+    assert all(edited[name] != src for name in edited if name != "shipped")
+    assert tool.main() == 1
     assert capsys.readouterr().out == ""

@@ -6,8 +6,8 @@ engines in XLA) and through the port, whose wrappers run the plain PyTorch
 versions on a CPU tensor.  Every result is an integer or a boolean, so the
 tolerance is exact equality.  The kernels need the card: the ``cuda``
 tests hold them against the plain versions there, and a numpy model of the
-3-gram count kernel's 1-bit tensor-core arithmetic is held against both
-packages here.
+3-gram count kernel's 1-bit warpgroup products
+(tests/test_torch_feature_wgmma.py) is held against both packages here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +29,7 @@ from guidemaker_tpu_torch.knn.features import (feature_count_plain,
                                                gram_rows, unpack_rows)
 from guidemaker_tpu_torch.knn.hamming import pack_codes, unpack_keys
 from test_torch_controls import FASTA, N, SEED, _config, _draw, _inject
+from test_torch_feature_wgmma import _wgmma_feature_count
 from test_torch_knn import _column_case
 
 
@@ -161,105 +162,23 @@ def test_feature_count_matches_jax_kernel(L, t, direction):
 
 
 #: row widths G = L - 2 at the 3-gram count kernel's k256 step edges (a
-#: step is 4 words): 1 and 4 words in one step, 5 in two, 18 and 25 in 5
-#: and 7 steps with padding, 30 in all 8
+#: step is 4 words): 1 and 4 words in one step, 5 in two, 18 in 5 (A in
+#: registers), 25 and 30 in 7 and 8 (A in shared memory), with padding
+#: but at 4 and 30
 FEATURE_EDGE_WORDS = [1, 4, 5, 18, 25, 30]
-
-_LANE = np.arange(32)
-_GID, _TID = _LANE >> 2, _LANE & 3
-
-
-def _units(rows, steps):
-    """(n, 8 steps) uint32: int64 feature rows as csrc/feature_count.cu
-    reads them, word w as 32-bit units 2w (its low half, the lower
-    address) and 2w + 1, words G..4 steps - 1 zero."""
-    words = np.zeros((rows.shape[0], 4 * steps), np.uint64)
-    words[:, :rows.shape[1]] = rows.astype(np.int64).view(np.uint64)
-    units = np.empty((rows.shape[0], 8 * steps), np.uint32)
-    units[:, 0::2] = words & 0xFFFFFFFF
-    units[:, 1::2] = words >> 32
-    return units
-
-
-def _ldsm_x4(units, row0, unit0):
-    """(32, 4) uint32: ldmatrix.x4 as gm::ldsm_src addresses it, at tile
-    row row0 and 32-bit unit unit0: lane l gives the row address of matrix
-    l >> 3, row ((l >> 4) << 3) + (l & 7), 16 bytes in if (l >> 3) & 1;
-    lane 4g + t receives unit t of row g of each matrix m."""
-    src = 8 * np.arange(4)[None, :] + _GID[:, None]       # (lane, m)
-    rows = row0 + ((src >> 4) << 3) + (src & 7)
-    return units[rows, unit0 + 4 * ((src >> 3) & 1) + _TID[:, None]]
-
-
-def _mma_b1(a, b):
-    """(32, 4) int: mma.sync.m16n8k256 .b1 .and.popc of the lane fragments
-    a (32, 4) and b (32, 2), by PTX's layout: A element (i, c) is bit
-    c & 31 of register 2 (c >> 7) + (i >> 3) of lane 4 (i & 7) +
-    ((c & 127) >> 5); B element (c, j) is bit c & 31 of register c >> 7 of
-    lane 4j + ((c & 127) >> 5); lane 4g + t holds D rows g + 8 (r >> 1),
-    columns 2t + (r & 1) in register r."""
-    c = np.arange(256)
-    i, j = np.arange(16)[:, None], np.arange(8)[None, :]
-    abits = (a[4 * (i & 7) + ((c & 127) >> 5), 2 * (c >> 7) + (i >> 3)]
-             >> (c & 31)) & 1
-    bbits = (b[4 * j.T + ((c & 127) >> 5), c >> 7] >> (c & 31)) & 1
-    d = abits.astype(np.int64) @ bbits.T.astype(np.int64)    # (16, 8)
-    r = np.arange(4)
-    return d[_GID[:, None] + 8 * (r >> 1), 2 * _TID[:, None] + (r & 1)]
-
-
-def _feature_products(q_rows, db_rows):
-    """(warps, batches, 2, 4, 32, 4) int: the products of
-    csrc/feature_count.cu in its accumulator layout, [warp, batch, mt, nt,
-    lane, register].  Rows of S = ceil(G/4) k256 steps with words G..4S-1
-    zero; warps of 32 queries (rows past nq zero) whose A fragments hold
-    units 8s + 4h + t of rows g and g + 8 of each m16 tile in register
-    2h + half; 128-row database tiles zero-filled past nd, read by
-    ldmatrix.x4 in batches of 4 n8 tiles."""
-    steps = -(-q_rows.shape[1] // 4)
-    nq, nd = q_rows.shape[0], db_rows.shape[0]
-    qu = np.zeros((-(-nq // 32) * 32, 8 * steps), np.uint32)
-    qu[:nq] = _units(q_rows, steps)
-    du = np.zeros((-(-nd // 128) * 128, 8 * steps), np.uint32)
-    du[:nd] = _units(db_rows, steps)
-    out = np.zeros((qu.shape[0] // 32, du.shape[0] // 32, 2, 4, 32, 4),
-                   np.int64)
-    for w, qw in enumerate(range(0, qu.shape[0], 32)):
-        a = np.zeros((2, steps, 32, 4), np.uint32)    # load_feature_a
-        for mt, s, h, half in np.ndindex(2, steps, 2, 2):
-            a[mt, s, :, 2 * h + half] = qu[qw + 16 * mt + 8 * half + _GID,
-                                           8 * s + 4 * h + _TID]
-        for n, n0 in enumerate(range(0, du.shape[0], 32)):   # mma_batch
-            b = np.stack([[_ldsm_x4(du, n0 + 16 * p, 8 * s)
-                           for p in range(2)] for s in range(steps)])
-            for mt, nt, s in np.ndindex(2, 4, steps):
-                out[w, n, mt, nt] += _mma_b1(
-                    a[mt, s], b[s, nt >> 1][:, 2 * (nt & 1):2 * (nt & 1) + 2])
-    return out
-
-
-def _feature_count_model(products, nq, thresh):
-    """The kernel's count from its products: sums started at
-    -(thresh + 1), each lane's sign gate over its 32 sums of a batch
-    (count_batch), and the quad sum of the sums >= 0 (add_counts)."""
-    acc = products - (thresh + 1)
-    lanes = acc.transpose(0, 1, 4, 2, 3, 5)           # [w, n, lane, mt, nt, r]
-    gate = np.bitwise_and.reduce(
-        lanes.reshape(*lanes.shape[:3], -1), axis=3) >= 0
-    passed = (lanes >= 0) & gate[..., None, None, None]
-    cnt = passed.reshape(*lanes.shape[:5], 2, 2).sum((1, 4, 6))  # [w, l, mt, h]
-    quad = cnt.reshape(-1, 8, 4, 2, 2).sum(2)         # [w, g, mt, half]
-    return quad.transpose(0, 2, 3, 1).reshape(-1)[:nq]
 
 
 @pytest.mark.parametrize("glen", FEATURE_EDGE_WORDS)
 @pytest.mark.parametrize("direction", [1, 2])
 def test_feature_count_kernel_model_matches_plain_and_jax(glen, direction):
-    """The 1-bit kernel's fragment addressing, zero padding, biased sign
-    gate and quad sum, modelled in numpy, equal the plain count and the
-    JAX Pallas count kernel (interpret mode) on the same 3-gram rows, with
-    N bases, a warp of all-N queries, a partly empty query block and a
-    database ragged against its tiles, at the threshold edges."""
+    """The wgmma kernel's copies into its core-matrix stages, A fragments
+    (in registers up to 5 k256 steps, in shared memory above), biased
+    sums, sign gate and quad sums, modelled in numpy
+    (tests/test_torch_feature_wgmma.py), equal the plain count and the JAX
+    Pallas count kernel (interpret mode) on the same 3-gram rows, with N
+    bases, a warp of all-N queries, a partly empty query block and a
+    database ragged against its tiles, whole or cut into 3 splits, at the
+    threshold edges."""
     L, t = glen + 2, 3
     rng = np.random.default_rng(40 + glen)
     q, db = _codes(rng, 300, 260, L)
@@ -272,12 +191,14 @@ def test_feature_count_kernel_model_matches_plain_and_jax(glen, direction):
     dp[:260] = db
     q_oh = jl._gram_feats_on_device(jnp.asarray(qp), t=tq)
     db_oh = jl._gram_feats_on_device(jnp.asarray(dp), t=td)
-    products = _feature_products(q_rows.numpy(), db_rows.numpy())
     for thresh in sorted({x for x in (0, glen - 3 * t - 1, glen - 1, glen)
                           if x >= 0}):
-        got = _feature_count_model(products, 300, thresh)
         want = feature_count_plain(q_rows, db_rows, thresh).numpy()
-        np.testing.assert_array_equal(got, want, err_msg=f"thresh {thresh}")
+        for n_splits in (1, 3):
+            got = _wgmma_feature_count(q_rows.numpy(), db_rows.numpy(),
+                                       thresh, n_splits)
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"thresh {thresh}, {n_splits} splits")
         ref = _stream_count(q_oh, db_oh, length=glen,
                             editdist=glen - thresh, q_tile=32, db_tile=128,
                             interpret=True)
@@ -600,9 +521,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("glen", FEATURE_EDGE_WORDS)
 def test_feature_count_matches_plain_on_card(cuda_device, glen):
-    """The kernel at its k256 step edges: query blocks of 1, 15 and 1000
-    rows (an all-N block among them), a database ragged against its
-    128-row tiles, t 3 and 4 in both directions, the threshold edges."""
+    """The kernel at its k256 step edges: query sets of 1, 15 and 1000
+    rows (an all-N block among them) and at its m64 tiles (63, 64, 65) and
+    256-query blocks (255, 257), a database ragged against its 128-row
+    tiles, t 3 and 4 in both directions, the threshold edges."""
     rng = np.random.default_rng(glen)
     qn, dbn = _codes(rng, 1000, 20003, glen + 2)
     qn[256:512] = dna.INVALID
@@ -610,7 +532,7 @@ def test_feature_count_matches_plain_on_card(cuda_device, glen):
     for t in (3, 4):
         for qr, dr in ((gram_rows(q, 0), gram_rows(db, t)),
                        (gram_rows(q, t), gram_rows(db, 0))):
-            for nq in (1, 15, 1000):
+            for nq in (1, 15, 63, 64, 65, 255, 257, 1000):
                 for thresh in {0, max(0, glen - 3 * t - 1), glen - 1, glen}:
                     assert torch.equal(
                         stream.feature_count(qr[:nq], dr, glen, thresh),

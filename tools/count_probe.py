@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the count and top-k kernels of one tree of the port on the card:
 K4, the packed-pair count, and K1, the 2-bit count, on the same guides;
-K2, the 2-bit top-k; and K5, the packed-pair top-k.
+K2, the 2-bit top-k; K5, the packed-pair top-k; and K1', the 3-gram
+count.
 
 Usage, on a machine with one H100:
 
@@ -20,7 +21,11 @@ phase-2 shape (the first 101,513 guides against all, k 1, 4, 8, 16 and
 32, each a kcap) and at 4096 x 200,000 (k 5), and times K1 on the
 phase-2 shape (editdist 2) beside it; and that K5 equals the plain packed
 top-k on K4's guides at the phase-2 shape (the same k) and at
-4096 x 200,001 (k 5); then prints one JSON line:
+4096 x 200,001 (k 5); and that K1' equals the plain 3-gram count in
+tier 1 of the Levenshtein filter at dist 4 (each guide's plain 3-gram row
+against every guide's row dilated by t 3, thresh 8) on all the guides
+(on a fixed sample of 4,096 queries) and at 4096 x 200,000; then prints
+one JSON line:
 each kernel's mean ms over 3 calls at each shape (10 at the small one),
 by CUDA events, with the card's name.  Without a card it exits 1 and
 prints nothing.
@@ -37,6 +42,9 @@ N_PHASE2 = 101_513
 #: the top-k's k at the phase-2 shape: kcap 1, 4, 8 (the main path's),
 #: 16 and 32
 PHASE2_KS = (1, 4, 8, 16, 32)
+#: K1' in tier 1 of the Levenshtein filter at dist 4: the database rows
+#: dilated by t 3, thresh 8 (knn/leven.py)
+TIER1_T, TIER1_THRESH = 3, 8
 
 
 def cuda_ms(fn, reps=3):
@@ -64,6 +72,8 @@ def main(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     from guidemaker_tpu_torch.knn import build, stream
     from guidemaker_tpu_torch.knn import packed as pk
+    from guidemaker_tpu_torch.knn.features import (feature_count_plain,
+                                                   gram_rows)
     from guidemaker_tpu_torch.knn.hamming import (hamming_topk_plain,
                                                   pack_codes)
     t0 = time.time()
@@ -115,6 +125,21 @@ def main(root: str) -> int:
             if not torch.equal(k5(), want[:, :k]):
                 raise AssertionError(f"K5 != plain at {shape}, k {k}")
             res[f"k5_ms_{shape}_{k}"] = cuda_ms(k5, reps)
+    del db, db2, want
+    fq, fdb = gram_rows(codes, 0), gram_rows(codes, TIER1_T)
+    sample = torch.from_numpy(np.sort(np.random.default_rng(3).choice(
+        N_GUIDES, 4096, replace=False))).to(dev)
+    for shape, q, rows, pick, reps in (
+            ("genome", fq, fdb, sample, 3),
+            ("4096x200000", fq[:4096], fdb[:200_000], None, 10)):
+        def k1p(q=q, rows=rows):
+            return stream.feature_count(q, rows, LENGTH - 2, TIER1_THRESH)
+        got = k1p()
+        if pick is not None:
+            got, q = got[pick], q[pick]
+        if not torch.equal(got, feature_count_plain(q, rows, TIER1_THRESH)):
+            raise AssertionError(f"K1' != plain at {shape}")
+        res[f"k1p_ms_{shape}"] = cuda_ms(k1p, reps)
     print(json.dumps(res), flush=True)
     return 0
 
